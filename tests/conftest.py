@@ -58,3 +58,8 @@ def multi_device(device_count) -> int:
     if device_count < 2:
         pytest.skip("needs >= 2 devices (run with JAX_DEVICES=8)")
     return device_count
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skipped where there is none")
