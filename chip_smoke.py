@@ -12,14 +12,26 @@ Phases, each printing one JSON line:
 1. ``env``     torch / CUDA / nvcc versions, the card and its power limit.
 2. ``build``   builds ``src/repro_torch/kernels/tmfu/csrc/tmfu.cu`` with nvcc
                and loads it.
-3. kernel checks: every hand-written kernel (``tmfu_multi``,
+3. ``kernel_checks``  every hand-written kernel (``tmfu_multi``,
                ``tmfu_multi_inplace``, ``tmfu_single``) against its plain
                PyTorch version on the card — float32, bfloat16, int32; the
                nine benchmark contexts plus an all-opcodes context on
                special values; G in {1, 8, 2048} tiles of 128 lanes and
-               batches of {128, 777 -> 1024, 32768, 65536} lanes.  float32
-               and int32 are compared bit for bit (NaN by position), and
-               so is bfloat16.  Then the timings (CUDA events, median).
+               batches of {128, 777 -> 1024, 32768, 65536} lanes.  Then the
+               contexts of the sparse schedule — swap, chain, dense (every
+               slot active), all-identity — with the nine and the
+               all-opcodes context at S in {16, 1, 15, 32} and tile widths
+               T in {128, 96, 300}, input rows outside each context's
+               R u W poisoned (they must come back unchanged, and no other
+               row may see them).  Every comparison is bit for bit, NaN by
+               position.  Timings at the ``kernels`` line's shapes.
+   ``kernel_timing``  float32 times (median of 30, CUDA events, launches
+               queued behind a held stream; cold, each launch on its own
+               copy of the input after an L2 flush, and warm, on one
+               input) of the multi-context kernels over the mixed, the
+               serving, the dense and the all-identity context, and of
+               the single-context kernel on each context, each beside its
+               bound.
 4. ``serve``   ``OverlayServer`` with bank capacities 4 and 8: nine
                kernels, four tenants, 72 requests of 32 768 lanes; ``flush``,
                ``as_completed`` and ``flush_sync`` agree bit for bit with
@@ -114,6 +126,62 @@ def all_opcodes_context(kind: str, s_max: int = S_MAX) -> dict:
     return {"op": op, "src_a": a, "src_b": b, "imm": imm}
 
 
+def _identity(s_max: int):
+    op = np.full((s_max, RF), BYP, np.int32)
+    a = np.tile(np.arange(RF, dtype=np.int32), (s_max, 1))
+    return op, a, a.copy(), np.zeros((s_max, RF), np.float64)
+
+
+def identity_context(kind: str, s_max: int = S_MAX) -> dict:
+    """Every slot passes its own row on (BYP, and OUT in the last stage)."""
+    op, a, b, imm = _identity(s_max)
+    op[-1, 1::2] = OUT
+    return {"op": op, "src_a": a, "src_b": b, "imm": imm}
+
+
+def swap_context(kind: str, s_max: int = S_MAX) -> dict:
+    """Stage 0 swaps rows 3 and 7 and computes rows 5 and 9 from each other."""
+    op, a, b, imm = _identity(s_max)
+    op[0, 3], a[0, 3] = BYP, 7
+    op[0, 7], a[0, 7] = OUT, 3
+    op[0, 5], a[0, 5], b[0, 5] = ADD, 9, 5
+    op[0, 9], a[0, 9], b[0, 9] = SUB, 5, 9
+    return {"op": op, "src_a": a, "src_b": b, "imm": imm}
+
+
+def chain_context(kind: str, s_max: int = S_MAX) -> dict:
+    """Stage s writes row 1 + s % 3 from the row stage s - 1 wrote."""
+    imms = FLOAT_IMMS if kind == "float" else INT_IMMS
+    op, a, b, imm = _identity(s_max)
+    cycle = (ADDC, MUL, SUB, MULC, ADD, RSUBC)
+    prev = 0
+    for s in range(s_max):
+        dst = 1 + s % 3
+        op[s, dst], a[s, dst], b[s, dst] = cycle[s % len(cycle)], prev, 0
+        imm[s, dst] = imms[s % len(imms)]
+        prev = dst
+    return {"op": op, "src_a": a, "src_b": b, "imm": imm}
+
+
+def dense_context(kind: str, s_max: int = S_MAX, seed: int = SEED) -> dict:
+    """Every slot active, opcodes over all 18, from RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    imms = FLOAT_IMMS if kind == "float" else INT_IMMS
+    op = rng.randint(0, N_OPS, size=(s_max, RF)).astype(np.int32)
+    a = rng.randint(0, RF, size=(s_max, RF)).astype(np.int32)
+    b = rng.randint(0, RF, size=(s_max, RF)).astype(np.int32)
+    own = ((op == BYP) | (op == OUT)) & (a == np.arange(RF))
+    a[own] = (a[own] + 1) % RF
+    imm = np.asarray(imms, np.float64)[rng.randint(0, len(imms),
+                                                   size=(s_max, RF))]
+    return {"op": op, "src_a": a, "src_b": b, "imm": imm}
+
+
+SPECIAL_CONTEXTS = {"all_opcodes": all_opcodes_context,
+                    "swap": swap_context, "chain": chain_context,
+                    "dense": dense_context, "identity": identity_context}
+
+
 def special_lanes(kind: str, n_lanes: int = 256, seed: int = 0) -> np.ndarray:
     """[32, n_lanes]: even rows special ``l % n``, odd rows ``(l // n) % n``."""
     specials = FLOAT_SPECIALS if kind == "float" else INT_SPECIALS
@@ -141,6 +209,8 @@ def compare_bits(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     """Equal bit patterns, NaN by position; returns the largest absolute
     difference over the lanes where both are numbers (0.0 when equal)."""
     assert got.shape == want.shape and got.dtype == want.dtype, what
+    if got.numel() == 0:
+        return 0.0
     it = {4: torch.int32, 2: torch.int16}[got.element_size()]
     if got.dtype.is_floating_point:
         gn, wn = torch.isnan(got), torch.isnan(want)
@@ -160,27 +230,85 @@ def compare_bits(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return err
 
 
+#: clock cycles the stream is held before a timed run (about 10 ms on an
+#: H100), so that every launch is queued before the device reaches it
+HOLD_CYCLES = 20_000_000
+#: bytes written to a scratch buffer before a cold timing: five times the
+#: H100's 50 MB L2, so that no launch finds its inputs there
+FLUSH_BYTES = 256 << 20
+
+
 def median_ms(fn, n: int, warmup: int = 3) -> float:
-    """Median over ``n`` launches of ``fn``, each timed with CUDA events."""
-    for _ in range(warmup):
-        fn()
+    """Median over the calls ``fn(i)``, ``i = 0 .. n-1``, each between two
+    CUDA events.  A spin kernel (``torch.cuda._sleep``) first holds the
+    stream, so all ``n`` calls are queued before the device reaches them
+    and each pair of events brackets the kernel on the device: timed one
+    by one, a kernel shorter than its Python wrapper is timed at the
+    wrapper's pace.  A call that waits on the device (the plain versions
+    do, in ``torch.unique(...).tolist()``) is timed at the host's pace
+    all the same."""
+    for i in range(warmup):
+        fn(i)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda._sleep(HOLD_CYCLES)
+    for i, (t0, t1) in enumerate(pairs):
         t0.record()
-        fn()
+        fn(i)
         t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    return statistics.median(t0.elapsed_time(t1) for t0, t1 in pairs)
+
+
+def cold_warm_ms(call, x, n: int = 30) -> tuple[float, float]:
+    """Medians of ``n`` launches ``call(x')``: (cold, warm).  Cold: each
+    launch on its own copy of ``x``, with L2 flushed after the copies are
+    made, so that every launch reads its tile stack from device memory, as
+    a serving round does (its stack has just come from the host).  Warm:
+    every launch on ``x``, whose rows stay in the 50 MB L2 between
+    launches."""
+    warm = median_ms(lambda i: call(x), n)
+    copies = [x.clone() for _ in range(n)]
+    torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=x.device).zero_()
+    cold = median_ms(lambda i: call(copies[i]), n, warmup=0)
+    return cold, warm
 
 
 def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     by_ops = n_ops / PEAK_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def multi_bounds(bank, ids, T: int, itemsize: int):
+    """Bounds of one multi-context launch over ``ids``, from the rows each
+    tile's context needs (``context_footprint``: R, the rows it reads
+    before writing them; W, the rows it writes).  Out of place (K2): the
+    row chunks of R or outside W in (a row of W outside R is overwritten
+    before anything reads it) and all 32 out.  In place (K3): R in and W
+    out.  Both count the ids, the contexts used and the active
+    lane-operations."""
+    from repro_torch.kernels.tmfu import kernel as tk
+    active, R, W = tk.context_footprint(*bank[:3])
+    idl = ids.long()
+    G, S = ids.numel(), bank[0].shape[1]
+    fixed = 4 * G + len(torch.unique(ids)) * 4 * S * RF * 4
+    ops = int(active.sum((1, 2))[idl].sum()) * T
+    rows_in = int((R | ~W).sum(1)[idl].sum())
+    rows = int((R.sum(1) + W.sum(1))[idl].sum())
+    return (bound((rows_in + G * RF) * T * itemsize + fixed, ops),
+            bound(rows * T * itemsize + fixed, ops))
+
+
+def single_bound(ctx, B: int, itemsize: int):
+    """Bound of one single-context launch: the rows of R or outside W in,
+    all 32 out, and the context."""
+    from repro_torch.kernels.tmfu import kernel as tk
+    active, R, W = tk.context_footprint(*ctx[:3])
+    rows_in = int((R | ~W).sum())
+    return bound((rows_in + RF) * B * itemsize + 4 * ctx[0].numel() * 4,
+                 int(active.sum()) * B)
 
 
 # ------------------------------------------------------------------ phases
@@ -214,45 +342,145 @@ def phase_build() -> None:
           else str(path), "flags": " ".join(tk.NVCC_FLAGS)})
 
 
-def stacked_bank(kernels, names, dtype, device):
-    """The nine contexts plus the all-opcodes context as one bank's stacked
-    tensors ``(op, src_a, src_b, imm_i32)`` of shape [10, S_MAX, 32]."""
+def context_fields(kernels, name, dtype, s_max=S_MAX):
+    """One context as host arrays ``(op, src_a, src_b, imm)``: a benchmark
+    kernel's program or one of ``SPECIAL_CONTEXTS``, ``imm`` rounded to
+    ``dtype`` and held in its host type."""
     from repro_torch.core import vm
+    if name in SPECIAL_CONTEXTS:
+        c = SPECIAL_CONTEXTS[name]("int" if dtype == torch.int32 else "float",
+                                   s_max)
+        imm = vm.to_host(torch.from_numpy(c["imm"]).to(dtype))
+        return c["op"], c["src_a"], c["src_b"], imm.astype(vm.host_dtype(dtype))
+    h = vm.host_context(kernels[name].program, s_max, dtype)
+    return h.op, h.src_a, h.src_b, h.imm
+
+
+def stacked_bank(kernels, ctx_names, dtype, device, s_max=S_MAX):
+    """The contexts ``ctx_names`` as one bank's stacked tensors
+    ``(op, src_a, src_b, imm_i32)`` of shape [N, s_max, 32]."""
     from repro_torch.kernels.tmfu.ops import _imm_to_i32
-    kind = "int" if dtype == torch.int32 else "float"
-    hosts = [vm.host_context(kernels[n].program, S_MAX, dtype) for n in names]
-    fields = {f: [getattr(h, f) for h in hosts]
-              for f in ("op", "src_a", "src_b", "imm")}
-    special = all_opcodes_context(kind)
-    for f in ("op", "src_a", "src_b"):
-        fields[f].append(special[f])
-    fields["imm"].append(vm.to_host(
-        torch.from_numpy(special["imm"]).to(dtype)).astype(vm.host_dtype(dtype)))
-    op, a, b = (torch.from_numpy(np.stack(fields[f])).to(device)
-                for f in ("op", "src_a", "src_b"))
-    imm = torch.from_numpy(np.stack(fields["imm"])).to(device).to(dtype)
+    fields = [context_fields(kernels, n, dtype, s_max) for n in ctx_names]
+    op, a, b = (torch.from_numpy(np.stack([f[i] for f in fields])).to(device)
+                for i in range(3))
+    imm = torch.from_numpy(np.stack([f[3] for f in fields])).to(device).to(dtype)
     return op, a, b, _imm_to_i32(imm).contiguous()
+
+
+def tiles_for(ids, dtype, device, rng, special_id=None, T=TILE):
+    """[G, 32, T] tiles for the context ids ``ids`` (numpy): uniform(-2, 2),
+    or for int32 small values in even tiles and full-range words in odd
+    ones; tiles of context ``special_id`` carry the special values."""
+    kind = "int" if dtype == torch.int32 else "float"
+    G = len(ids)
+    if kind == "int":
+        x = rng.randint(-6, 7, size=(G, RF, T)).astype(np.int32)
+        wide = rng.randint(-2**31, 2**31 - 1, size=(G, RF, T),
+                           dtype=np.int64).astype(np.int32)
+        x[1::2] = wide[1::2]
+    else:
+        x = rng.uniform(-2, 2, (G, RF, T)).astype(np.float32)
+    if special_id is not None:
+        sp = special_lanes(kind, 2 * T)
+        for j, g in enumerate(np.nonzero(ids == special_id)[0]):
+            x[g] = sp[:, (j % 2) * T:(j % 2 + 1) * T]
+    return torch.from_numpy(x).to(device).to(dtype)
 
 
 def tile_stack(n_ctx, G, dtype, device, rng, special=True):
     """[G, 32, 128] tiles and their context ids: tile g runs context
-    ``g % n_ctx``; with ``special``, tiles of the last (all-opcodes) context
-    carry the special values; int32 tiles alternate small and full-range
-    values."""
-    kind = "int" if dtype == torch.int32 else "float"
+    ``g % n_ctx``; with ``special``, tiles of the last (all-opcodes)
+    context carry the special values."""
     ids = (np.arange(G) % n_ctx).astype(np.int32)
-    if kind == "int":
-        x = rng.randint(-6, 7, size=(G, RF, TILE)).astype(np.int32)
-        wide = rng.randint(-2**31, 2**31 - 1, size=(G, RF, TILE),
-                           dtype=np.int64).astype(np.int32)
-        x[1::2] = wide[1::2]
-    else:
-        x = rng.uniform(-2, 2, (G, RF, TILE)).astype(np.float32)
-    sp = special_lanes(kind, 2 * TILE)
-    for j, g in enumerate(np.nonzero(ids == n_ctx - 1)[0] if special else ()):
-        x[g] = sp[:, (j % 2) * TILE:(j % 2 + 1) * TILE]
-    return (torch.from_numpy(ids).to(device),
-            torch.from_numpy(x).to(device).to(dtype))
+    x = tiles_for(ids, dtype, device, rng, n_ctx - 1 if special else None)
+    return torch.from_numpy(ids).to(device), x
+
+
+#: the word written into input rows a context neither reads nor writes: a
+#: NaN with a payload no arithmetic makes (int32: the same word)
+POISON = {torch.float32: (torch.int32, 0x7FA5A5A5),
+          torch.bfloat16: (torch.int16, 0x7FA5),
+          torch.int32: (torch.int32, 0x7FA5A5A5)}
+
+
+def poisoned(x, rows):
+    """A copy of ``x`` with the rows ``rows`` (bool, ``x``'s leading
+    shape) set to the poison word."""
+    bits, word = POISON[x.dtype]
+    out = x.clone()
+    out.view(bits)[rows] = word
+    return out
+
+
+def check_untouched(got, x, what):
+    bits = POISON[got.dtype][0]
+    if not torch.equal(got.view(bits), x.view(bits)):
+        raise AssertionError(f"{what}: a row the context does not write "
+                             "differs from the input")
+
+
+def check_multi_footprint(bank, ids, x, what, record):
+    """Both multi-context entry points on ``x`` with its rows outside R u W
+    poisoned: rows of W equal the plain result on the clean ``x``, every
+    other row comes back as the poisoned input, bit for bit."""
+    from repro_torch.kernels.tmfu import kernel as tk
+    _, R, W = tk.context_footprint(*bank[:3])
+    idl = ids.long()
+    written = W[idl]
+    xp = poisoned(x, ~(R | W)[idl])
+    want = tk.tmfu_pipeline_rf_multi_plain(*bank, ids, x)
+    for name in ("tmfu_multi", "tmfu_multi_inplace"):
+        xin = xp.clone()
+        if name == "tmfu_multi":
+            got = tk.tmfu_pipeline_rf_multi(*bank, ids, xin)
+        else:
+            got = tk.tmfu_pipeline_rf_multi_donated(*bank, ids, xin)
+            assert got is xin, "the in-place kernel must return its input"
+        torch.cuda.synchronize()
+        record(name, compare_bits(got[written], want[written],
+                                  f"{name}/{what}"))
+        check_untouched(got[~written], xp[~written], f"{name}/{what}")
+
+
+def check_single_footprint(ctx, x, what, record):
+    """``tmfu_single`` on ``x`` with its rows outside R u W poisoned."""
+    from repro_torch.kernels.tmfu import kernel as tk
+    _, R, W = tk.context_footprint(*ctx[:3])
+    xp = poisoned(x, ~(R | W))
+    want = tk.tmfu_pipeline_rf_plain(*ctx, x)
+    got = tk.tmfu_pipeline_rf(*ctx, xp, block_batch=x.shape[1])
+    torch.cuda.synchronize()
+    record("tmfu_single", compare_bits(got[W], want[W],
+                                       f"tmfu_single/{what}"))
+    check_untouched(got[~W], xp[~W], f"tmfu_single/{what}")
+
+
+def footprint_checks(kernels, names, dtype, dname, device, rng, record):
+    """The contexts that exercise the sparse schedule — swap, chain, dense,
+    all-identity — beside the nine and the all-opcodes context, at
+    S in {16, 1, 15, 32} and tile widths T in {128, 96, 300}, with the rows
+    outside each context's R u W poisoned: both multi-context entry points
+    on 4 tiles a context, the single-context one on each context."""
+    every = list(names) + list(SPECIAL_CONTEXTS)
+    cases = [(S_MAX, T, every) for T in (TILE, 96, 300)]
+    cases += [(1, T, ["swap", "chain", "dense", "identity"])
+              for T in (TILE, 300)]
+    cases += [(S, T, every) for S in (15, 32) for T in (TILE, 300)]
+    for S, T, ctx_names in cases:
+        bank = stacked_bank(kernels, ctx_names, dtype, device, S)
+        sid = (ctx_names.index("all_opcodes") if "all_opcodes" in ctx_names
+               else None)
+        ids = (np.arange(4 * len(ctx_names)) % len(ctx_names)).astype(np.int32)
+        x = tiles_for(ids, dtype, device, rng, sid, T)
+        what = f"{dname}/S={S}/T={T}"
+        check_multi_footprint(bank, torch.from_numpy(ids).to(device), x,
+                              what, record)
+        for k, n in enumerate(ctx_names):
+            ctx = tuple(t[k].contiguous() for t in bank)
+            for B in ((T, 32768) if (S, T) == (S_MAX, TILE) else (T,)):
+                xb = tiles_for(np.zeros(1), dtype, device, rng,
+                               0 if k == sid else None, B)[0]
+                check_single_footprint(ctx, xb, f"{what}/{n}/B={B}", record)
 
 
 def phase_kernels(kernels, names, device) -> dict:
@@ -264,9 +492,15 @@ def phase_kernels(kernels, names, device) -> dict:
     rng = np.random.RandomState(SEED)
     err = {"tmfu_multi": 0.0, "tmfu_multi_inplace": 0.0, "tmfu_single": 0.0}
     n_cmp = dict.fromkeys(err, 0)
+
+    def record(name, e):
+        err[name] = max(err[name], e)
+        n_cmp[name] += 1
+
     timing = {}
     for dname, dtype in DTYPES:
-        bank = stacked_bank(kernels, names, dtype, device)
+        bank = stacked_bank(kernels, list(names) + ["all_opcodes"], dtype,
+                            device)
         n_ctx = bank[0].shape[0]
         itemsize = torch.empty((), dtype=dtype).element_size()
         # ---- multi and in-place multi
@@ -275,30 +509,26 @@ def phase_kernels(kernels, names, device) -> dict:
             want = tk.tmfu_pipeline_rf_multi_plain(*bank, ids, x)
             got = tk.tmfu_pipeline_rf_multi(*bank, ids, x)
             torch.cuda.synchronize()
-            e = compare_bits(got, want, f"tmfu_multi/{dname}/G={G}")
-            err["tmfu_multi"] = max(err["tmfu_multi"], e)
-            n_cmp["tmfu_multi"] += 1
+            record("tmfu_multi", compare_bits(got, want,
+                                              f"tmfu_multi/{dname}/G={G}"))
             x2 = x.clone()
             got2 = tk.tmfu_pipeline_rf_multi_donated(*bank, ids, x2)
             torch.cuda.synchronize()
             assert got2 is x2, "the in-place kernel must return its input"
-            e = compare_bits(got2, want, f"tmfu_multi_inplace/{dname}/G={G}")
-            err["tmfu_multi_inplace"] = max(err["tmfu_multi_inplace"], e)
-            n_cmp["tmfu_multi_inplace"] += 1
+            record("tmfu_multi_inplace",
+                   compare_bits(got2, want, f"tmfu_multi_inplace/{dname}/G={G}"))
             if G == 2048:
-                used = min(n_ctx, G)
-                n_bytes = (2 * x.numel() * itemsize + ids.numel() * 4
-                           + used * 4 * S_MAX * RF * 4)
-                b_ms, b_by = bound(n_bytes, G * S_MAX * RF * TILE)
-                ms = median_ms(lambda: tk.tmfu_pipeline_rf_multi(
-                    *bank, ids, x), 30)
-                ms_in = median_ms(lambda: tk.tmfu_pipeline_rf_multi_donated(
-                    *bank, ids, x2), 30)
-                plain = median_ms(lambda: tk.tmfu_pipeline_rf_multi_plain(
+                full, sparse = multi_bounds(bank, ids, TILE, itemsize)
+                ms = cold_warm_ms(lambda xi: tk.tmfu_pipeline_rf_multi(
+                    *bank, ids, xi), x)
+                ms_in = cold_warm_ms(
+                    lambda xi: tk.tmfu_pipeline_rf_multi_donated(
+                        *bank, ids, xi), x2)
+                plain = median_ms(lambda i: tk.tmfu_pipeline_rf_multi_plain(
                     *bank, ids, x), 5, warmup=1)
-                timing[("tmfu_multi", dname)] = (ms, plain, b_ms, b_by)
-                timing[("tmfu_multi_inplace", dname)] = (ms_in, plain, b_ms,
-                                                         b_by)
+                timing[("tmfu_multi", dname)] = (*ms, plain, *full)
+                timing[("tmfu_multi_inplace", dname)] = (*ms_in, plain,
+                                                         *sparse)
         # ---- single context: every context at every batch
         for B in (128, 1024, 32768, 65536):
             for k in range(n_ctx):
@@ -314,17 +544,15 @@ def phase_kernels(kernels, names, device) -> dict:
                 got = tk.tmfu_pipeline_rf(*ctx, xb,
                                           block_batch=min(512, B))
                 torch.cuda.synchronize()
-                e = compare_bits(got, want, f"tmfu_single/{dname}/B={B}/ctx={k}")
-                err["tmfu_single"] = max(err["tmfu_single"], e)
-                n_cmp["tmfu_single"] += 1
+                record("tmfu_single", compare_bits(
+                    got, want, f"tmfu_single/{dname}/B={B}/ctx={k}"))
                 if B == 32768 and k == 0:
-                    n_bytes = 2 * xb.numel() * itemsize + 4 * S_MAX * RF * 4
-                    b_ms, b_by = bound(n_bytes, S_MAX * RF * B)
-                    ms = median_ms(lambda: tk.tmfu_pipeline_rf(
-                        *ctx, xb, block_batch=512), 30)
-                    plain = median_ms(lambda: tk.tmfu_pipeline_rf_plain(
+                    ms = cold_warm_ms(lambda xi: tk.tmfu_pipeline_rf(
+                        *ctx, xi, block_batch=512), xb)
+                    plain = median_ms(lambda i: tk.tmfu_pipeline_rf_plain(
                         *ctx, xb), 5, warmup=1)
-                    timing[("tmfu_single", dname)] = (ms, plain, b_ms, b_by)
+                    timing[("tmfu_single", dname)] = (
+                        *ms, plain, *single_bound(ctx, B, itemsize))
         # ---- the public wrapper's pad / out_idx / trim at a ragged batch
         for n in names:
             ctx = vm.make_context(kernels[n].program, S_MAX, dtype, device)
@@ -333,32 +561,91 @@ def phase_kernels(kernels, names, device) -> dict:
             want = vm.vm_exec(ctx.tree(), ctx.out_idx, xr)
             got = tops.tmfu_pipeline(ctx, xr)
             torch.cuda.synchronize()
-            e = compare_bits(got, want, f"tmfu_pipeline/{dname}/{n}/B=777")
-            err["tmfu_single"] = max(err["tmfu_single"], e)
-            n_cmp["tmfu_single"] += 1
+            record("tmfu_single", compare_bits(
+                got, want, f"tmfu_pipeline/{dname}/{n}/B=777"))
+        # ---- the sparse schedule's own cases
+        footprint_checks(kernels, names, dtype, dname, device, rng, record)
     replaces = {"tmfu_multi": "src/repro/kernels/tmfu/kernel.py:169",
                 "tmfu_multi_inplace": "src/repro/kernels/tmfu/kernel.py:202",
                 "tmfu_single": "src/repro/kernels/tmfu/kernel.py:234"}
     shapes = {"tmfu_multi": "G=2048 T=128 S=16",
               "tmfu_multi_inplace": "G=2048 T=128 S=16",
               "tmfu_single": "B=32768 S=16"}
+    counts = {"tmfu_multi": "per tile |R or not W| row chunks of T lanes "
+                            "in, 32 out (context_footprint), ids, contexts "
+                            "used",
+              "tmfu_multi_inplace": "per tile |R|+|W| row chunks of T lanes "
+                                    "(context_footprint), ids, contexts used",
+              "tmfu_single": "|R or not W| rows in, 32 out "
+                             "(context_footprint), the context"}
     records = {}
     for name in err:
-        ms, plain, b_ms, b_by = timing[(name, "float32")]
+        ms, warm, plain, b_ms, b_by = timing[(name, "float32")]
         records[name] = {
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": replaces[name], "launches": None,
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": shapes[name] + " float32", "comparisons": n_cmp[name],
+            "shape": shapes[name] + " float32", "bound_counts": counts[name],
+            "timing": "median of 30 queued launches, each on its own copy "
+                      "of the input, L2 flushed first (cold); warm_ms: "
+                      "every launch on one input",
+            "warm_ms": warm, "comparisons": n_cmp[name],
             "tolerance": "bit-exact, NaN by position "
                          "(float32, bfloat16, int32)",
             "other_dtypes_ms": {d: timing[(name, d)][0]
                                 for d in ("bfloat16", "int32")}}
     emit({"phase": "kernel_checks",
           "compared": n_cmp, "max_abs_err": err,
-          "ms": {f"{k}/{d}": v[0] for (k, d), v in timing.items()}})
+          "ms_cold_warm": {f"{k}/{d}": v[:2] for (k, d), v in timing.items()}})
     return records
+
+
+def phase_timing(kernels, names, device) -> None:
+    """float32 kernel times at G = 2048, T = 128, S = 16 over four context
+    mixes — ``mixed`` (tile g runs context g % 10: the nine and the
+    all-opcodes context, the ``kernels`` line's shape), ``serving`` (the
+    nine only), ``dense`` and ``identity`` — and the single-context kernel
+    at B = 32768 on each of the nine and the dense context; each beside
+    its bound."""
+    from repro_torch.kernels.tmfu import kernel as tk
+    rng = np.random.RandomState(SEED + 2)
+    every = list(names) + list(SPECIAL_CONTEXTS)
+    bank = stacked_bank(kernels, every, torch.float32, device)
+    sid, G = every.index("all_opcodes"), 2048
+    mixes = {"mixed": np.arange(G) % 10, "serving": np.arange(G) % 9,
+             "dense": np.full(G, every.index("dense")),
+             "identity": np.full(G, every.index("identity"))}
+    rows = []
+    for mix, ids_np in mixes.items():
+        ids_np = ids_np.astype(np.int32)
+        ids = torch.from_numpy(ids_np).to(device)
+        x = tiles_for(ids_np, torch.float32, device, rng, sid)
+        full, sparse = multi_bounds(bank, ids, TILE, 4)
+        for name, fn, (b_ms, b_by) in (
+                ("tmfu_multi", lambda xi: tk.tmfu_pipeline_rf_multi(
+                    *bank, ids, xi), full),
+                ("tmfu_multi_inplace",
+                 lambda xi: tk.tmfu_pipeline_rf_multi_donated(
+                     *bank, ids, xi), sparse)):
+            cold, warm = cold_warm_ms(fn, x.clone())
+            rows.append({"kernel": name, "mix": mix, "ms": cold,
+                         "warm_ms": warm, "bound_ms": b_ms, "bound_by": b_by})
+    for n in list(names) + ["dense"]:
+        ctx = tuple(t[every.index(n)].contiguous() for t in bank)
+        xb = tiles_for(np.zeros(1), torch.float32, device, rng, None, 32768)[0]
+        b_ms, b_by = single_bound(ctx, 32768, 4)
+        cold, warm = cold_warm_ms(lambda xi: tk.tmfu_pipeline_rf(
+            *ctx, xi, block_batch=512), xb)
+        rows.append({"kernel": "tmfu_single", "mix": n, "ms": cold,
+                     "warm_ms": warm, "bound_ms": b_ms, "bound_by": b_by})
+    emit({"phase": "kernel_timing",
+          "shape": "float32; multi G=2048 T=128 S=16; single B=32768 S=16",
+          "timing": "median of 30 launches between CUDA events, launches "
+                    "queued behind a held stream; ms: each launch on its "
+                    "own copy of the input, L2 flushed first (cold); "
+                    "warm_ms: every launch on one input",
+          "rows": rows})
 
 
 def make_trace(kernels, names, n_requests, lanes, n_tenants):
@@ -548,6 +835,7 @@ def main() -> int:
     names = list(BENCH_NAMES) + ["gradient"]
     kernels = {n: compile_program(benchmark(n)) for n in names}
     records = phase_kernels(kernels, names, device)
+    phase_timing(kernels, names, device)
     counts = phase_serve(kernels, names, device)
     for name, rec in records.items():
         rec["launches"] = counts[name]

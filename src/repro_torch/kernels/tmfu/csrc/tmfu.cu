@@ -16,30 +16,68 @@
 // For each of S stages and each of the 32 instruction slots i,
 //     out[i] = OP[op[s][i]](rf[src_a[s][i]], rf[src_b[s][i]], imm[s][i])
 // and the 32 results are the next stage's register file.  Lanes never mix.
+// The result is the register file after the last stage.
 //
-// Design.  One thread owns one lane: it keeps its column of the two
-// ping-ponged register files in shared memory (shared memory, not
-// registers, because the row read is indexed at run time by the 5-bit
-// source addresses).  Column t of a row lies in bank t % 32, so a warp's
-// reads and writes are conflict-free.  Because a thread reads and writes
-// only its own column, stages need no barrier between them; the one
-// __syncthreads() is behind the cooperative copy of the tile's context
-// (4 x S x 32 words) from the bank into shared memory.  The opcode of a
-// slot is the same for every thread of the block, so the switch does not
-// diverge.  A block handles LANES = 128 columns; tiles wider than that are
-// split over gridDim.y and a ragged last chunk is masked, so G, S, T and B
-// are all run-time arguments and nothing is compiled per shape.
+// What bounds it.  Almost every slot of a compiled context is a BYP or OUT
+// of its own row (src_a == i): the identity padding of make_context, 94 %
+// of the slots of the nine benchmark contexts.  Such a slot passes row i on
+// unchanged.  What is left is a few active slots a stage in the first
+// stages, reading a handful of input rows (R) and writing a handful (W).
+// So the work that must be done is the bytes of those rows (in place; all
+// 32 rows out of place) plus a few hundred lane-operations: the kernels
+// are bound by device-memory bytes.  A kernel that executes every slot
+// spends its time on the identity slots (512 a context, each with its
+// context reads, two operand reads, a write and an indirect branch), and
+// one that moves all 32 rows in place moves several times the bytes.
 //
-// Every block loads its whole tile before it stores any of it and no block
+// Design.  A block owns LANES columns of one tile; one thread owns one
+// lane (column).  Tiles wider than a block spread over gridDim.y; the
+// ragged last chunk is masked; G, S, T and B are run-time arguments.
+//
+//  1. Decode once per block, skip identity slots.  Lane i of a warp reads
+//     slot (s, i) of the block's context (the four words of four stages in
+//     one round trip).  The slot is active unless it is BYP or OUT with
+//     src_a == i.  A ballot gives the stage's active mask and
+//     popc(mask & lanemask_lt) each active slot its place in a compact
+//     per-stage list of 8-byte entries (op | src_a << 8 | src_b << 16 |
+//     dst << 24, and the immediate): one broadcast shared-memory read per
+//     executed slot.  The same pass gives the stage's rows read (src_a for
+//     every op but NOP, src_b for the binary ops) and written (the active
+//     mask: slot i writes row i); folded over the stages they give R and
+//     W.  A stage with no active slot costs one shared read.
+//  2. Two register files in shared memory.  A stage reads each operand
+//     from the file that holds the row's current value and writes each
+//     result to the other file; the rows it wrote then live there.  So
+//     every slot reads the previous stage's register file, as in the
+//     reference, with no copy of the rows a stage leaves alone, no order
+//     among a stage's slots and no array of results.  Which file holds a
+//     row at each stage is known once the masks are: the walk over the
+//     stages that folds R and W also rewrites each list entry's rows as
+//     rows of the two files (r or r + 32).  The slot loop is then a few
+//     instructions a slot and small, which matters: a version that kept
+//     32 results in registers, unrolled, had six times the code and ran
+//     the sparse mixes at half the speed, missing the instruction cache.
+//     The entries and operands of BATCH slots are loaded before any of
+//     them is computed.  A thread touches only its own column, so stages
+//     need no barrier.
+//  3. Only the needed rows move.  In place (out == x) the block loads R
+//     and stores W; rows outside R u W are never touched, x already holds
+//     them.  Out of place it loads every row, issued before the decode so
+//     the copies overlap it, and stores every row.  Where a row chunk
+//     (ncols x itemsize bytes) and the row stride are multiples of 16
+//     bytes, lane r of warp 0 moves row r with one cp.async.bulk: global
+//     -> shared on an mbarrier with expect_tx; shared -> global in a bulk
+//     group after a fence.proxy.async and a barrier, waited on with
+//     wait_group.read before the block exits.  (The copy engine takes the
+//     rows one after another, about 150 cycles each, whoever issues them;
+//     cp.async of 16 bytes a lane in and 16-byte stores out measured
+//     slower out of place and no faster in place.)  Otherwise each thread
+//     moves its own column with plain coalesced loads and stores.
+//  The single-context kernel runs the same body with row stride B.
+//
+// Every block loads what it needs before it stores anything and no block
 // touches another block's columns, so the kernel may run in place
 // (out == x); that is the donated entry point.
-//
-// What bounds it.  Per float32 tile of T = 128 the kernel moves 16 KiB in
-// and 16 KiB out of device memory (plus 4 bytes of id and, per block, 8 KiB
-// of context that stays in L2), against S x 32 x T lane-operations, each two
-// shared-memory reads, one write and an instruction fetch.  It is bound by
-// device-memory bytes or, before that, by shared-memory and instruction rate;
-// never by the tensor cores.
 //
 // Number semantics (held bit for bit against the plain PyTorch executor):
 //   * no fused multiply-add: every float op is an explicit round-to-nearest
@@ -65,13 +103,18 @@
 namespace {
 
 constexpr int RF = 32;       // register-file depth == instruction-memory depth
-constexpr int LANES = 128;   // columns (threads) per block
+constexpr int LANES = 128;   // columns (threads) per block (64 measured slower)
 
 enum Opcode : int {
   OP_BYP = 0, OP_ADD, OP_SUB, OP_MUL, OP_ADDC, OP_SUBC, OP_RSUBC, OP_MULC,
   OP_SQR, OP_MAX, OP_MIN, OP_ABS, OP_NEG, OP_AND, OP_OR, OP_XOR, OP_OUT,
   OP_NOP
 };
+
+// opcodes that read src_b (every opcode but NOP reads src_a)
+constexpr uint32_t READS_SRC_B =
+    1u << OP_ADD | 1u << OP_SUB | 1u << OP_MUL | 1u << OP_MAX | 1u << OP_MIN |
+    1u << OP_AND | 1u << OP_OR | 1u << OP_XOR;
 
 __device__ __forceinline__ float f32_max(float a, float b) {
   if (a != a || b != b) return __fadd_rn(a, b);
@@ -189,83 +232,276 @@ struct I32 {
   static __device__ __forceinline__ T bxor(T a, T b) { return a ^ b; }
 };
 
-// Dynamic shared memory: two register files [RF][LANES] of T, then the
-// block's context as four [S][RF] int tables (op, src_a, src_b, imm).
-extern __shared__ __align__(16) unsigned char smem_raw[];
+// ------------------------------------------------ asynchronous bulk copies
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// Runs the S stages of one context over LANES columns.
-//   op/src_a/src_b/imm : the selected context, [S][RF] words in device memory
-//   x, out             : first element of row 0 of this tile's register file
-//   row_stride         : elements between consecutive rows
-//   col                : this thread's column, live when col < ncols
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// global -> shared, completion counted in bytes on the mbarrier
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// shared -> global, in the thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+}
+
+// ------------------------------------------------------------ the pipeline
+// One instruction's result from its operands.
 template <class X>
-__device__ __forceinline__ void run_pipeline(
-    const int* __restrict__ op, const int* __restrict__ src_a,
-    const int* __restrict__ src_b, const int* __restrict__ imm,
-    const typename X::T* x, typename X::T* out,
-    int S, size_t row_stride, size_t col, bool live) {
-  using T = typename X::T;
-  const int t = threadIdx.x;
-  T* cur = reinterpret_cast<T*>(smem_raw);
-  T* nxt = cur + RF * LANES;
-  int* s_op = reinterpret_cast<int*>(nxt + RF * LANES);
-  const int n = S * RF;
-  int* s_a = s_op + n;
-  int* s_b = s_a + n;
-  int* s_imm = s_b + n;
-
-  for (int k = t; k < n; k += LANES) {
-    s_op[k] = op[k];
-    s_a[k] = src_a[k];
-    s_b[k] = src_b[k];
-    s_imm[k] = imm[k];
-  }
-#pragma unroll
-  for (int r = 0; r < RF; ++r)
-    cur[r * LANES + t] = live ? x[r * row_stride + col] : X::zero();
-  __syncthreads();   // the context tables are complete
-
-  for (int s = 0; s < S; ++s) {
-    const int base = s * RF;
-#pragma unroll 4
-    for (int i = 0; i < RF; ++i) {
-      const T va = cur[s_a[base + i] * LANES + t];
-      const T vb = cur[s_b[base + i] * LANES + t];
-      const T cv = X::imm(s_imm[base + i]);
-      T r;
-      switch (s_op[base + i]) {
-        case OP_BYP:   r = va; break;
-        case OP_ADD:   r = X::add(va, vb); break;
-        case OP_SUB:   r = X::sub(va, vb); break;
-        case OP_MUL:   r = X::mul(va, vb); break;
-        case OP_ADDC:  r = X::add(va, cv); break;
-        case OP_SUBC:  r = X::sub(va, cv); break;
-        case OP_RSUBC: r = X::sub(cv, va); break;
-        case OP_MULC:  r = X::mul(va, cv); break;
-        case OP_SQR:   r = X::mul(va, va); break;
-        case OP_MAX:   r = X::max(va, vb); break;
-        case OP_MIN:   r = X::min(va, vb); break;
-        case OP_ABS:   r = X::abs(va); break;
-        case OP_NEG:   r = X::neg(va); break;
-        case OP_AND:   r = X::band(va, vb); break;
-        case OP_OR:    r = X::bor(va, vb); break;
-        case OP_XOR:   r = X::bxor(va, vb); break;
-        case OP_OUT:   r = va; break;
-        default:       r = X::zero(); break;   // NOP
-      }
-      nxt[i * LANES + t] = r;
-    }
-    // the stage's result stream IS the next stage's register file
-    T* tmp = cur; cur = nxt; nxt = tmp;
-  }
-
-  if (live) {
-#pragma unroll
-    for (int r = 0; r < RF; ++r) out[r * row_stride + col] = cur[r * LANES + t];
+__device__ __forceinline__ typename X::T compute(uint32_t op, typename X::T va,
+                                                 typename X::T vb, int imm) {
+  switch (op) {
+    case OP_BYP:   return va;
+    case OP_ADD:   return X::add(va, vb);
+    case OP_SUB:   return X::sub(va, vb);
+    case OP_MUL:   return X::mul(va, vb);
+    case OP_ADDC:  return X::add(va, X::imm(imm));
+    case OP_SUBC:  return X::sub(va, X::imm(imm));
+    case OP_RSUBC: return X::sub(X::imm(imm), va);
+    case OP_MULC:  return X::mul(va, X::imm(imm));
+    case OP_SQR:   return X::mul(va, va);
+    case OP_MAX:   return X::max(va, vb);
+    case OP_MIN:   return X::min(va, vb);
+    case OP_ABS:   return X::abs(va);
+    case OP_NEG:   return X::neg(va);
+    case OP_AND:   return X::band(va, vb);
+    case OP_OR:    return X::bor(va, vb);
+    case OP_XOR:   return X::bxor(va, vb);
+    case OP_OUT:   return va;
+    default:       return X::zero();   // NOP
   }
 }
 
-// grid (G, ceil(T / LANES)); block g handles tile g with context ctx_ids[g].
+// A list entry's fields: op | src_a << 8 | src_b << 16 | dst << 24.
+__device__ __forceinline__ uint32_t e_op(uint32_t w) { return w & 0xffu; }
+__device__ __forceinline__ uint32_t e_a(uint32_t w) { return (w >> 8) & 31u; }
+__device__ __forceinline__ uint32_t e_b(uint32_t w) { return (w >> 16) & 31u; }
+__device__ __forceinline__ uint32_t e_dst(uint32_t w) { return w >> 24; }
+// ... and once resolved to the two files: rows 0..63 (file 1 = rows 32..63)
+__device__ __forceinline__ uint32_t f_a(uint32_t w) { return (w >> 8) & 63u; }
+__device__ __forceinline__ uint32_t f_b(uint32_t w) { return (w >> 16) & 63u; }
+__device__ __forceinline__ uint32_t f_dst(uint32_t w) { return w >> 24; }
+
+// Slots of a stage issued together: their entries and operands are loaded
+// before any of them is computed, so the loads overlap.
+constexpr int BATCH = 4;
+
+// Dynamic shared memory, in this order: two register files [2][RF][L] of T
+// (a row's current value lies in one of them); the mbarrier (16 bytes with
+// padding); the compact per-stage lists [S][RF] of uint2; rows read [S] and
+// active masks [S] (uint32_t).
+extern __shared__ __align__(16) unsigned char smem_raw[];
+
+template <class X, int L>
+size_t smem_bytes(int S) {
+  return 2 * RF * L * sizeof(typename X::T) + 16 +
+         (size_t)S * (RF * sizeof(uint2) + 2 * sizeof(uint32_t));
+}
+
+// Runs the S stages of one context over one block of columns.
+//   op/src_a/src_b/imm : the selected context, [S][RF] words in device memory
+//   x, out             : row 0 of this block's first column; out == x runs
+//                        in place
+//   row_stride         : elements between consecutive rows
+//   ncols              : live columns of this block (1..L)
+template <class X, int L>
+__device__ __forceinline__ void run_pipeline(
+    const int* __restrict__ op, const int* __restrict__ src_a,
+    const int* __restrict__ src_b, const int* __restrict__ imm,
+    const typename X::T* x, typename X::T* out, int S, size_t row_stride,
+    int ncols) {
+  using T = typename X::T;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const bool warp0 = t < 32;
+  T* rf = reinterpret_cast<T*>(smem_raw);         // file 0; file 1 = rf + RF * L
+  uint64_t* bar =
+      reinterpret_cast<uint64_t*>(smem_raw + 2 * RF * L * sizeof(T));
+  uint2* list = reinterpret_cast<uint2*>(bar + 2);
+  uint32_t* rows_read = reinterpret_cast<uint32_t*>(list + (size_t)S * RF);
+  uint32_t* active = rows_read + S;
+
+  const bool inplace = static_cast<const void*>(x) == out;
+  const uint32_t chunk = (uint32_t)ncols * sizeof(T);
+  const bool bulk = (row_stride * sizeof(T)) % 16 == 0 && chunk % 16 == 0 &&
+                    ((reinterpret_cast<uintptr_t>(x) |
+                      reinterpret_cast<uintptr_t>(out)) % 16) == 0;
+  const bool live = t < ncols;
+
+  // Out of place every row is loaded (into file 0); with bulk copies the 32
+  // lanes of warp 0 issue one row each at once, and the copies overlap the
+  // decode.
+  if (bulk && warp0) {
+    if (lane == 0) {
+      mbar_init(bar);
+      if (!inplace) mbar_expect_tx(bar, RF * chunk);
+    }
+    __syncwarp();
+    if (!inplace) bulk_load(rf + lane * L, x + lane * row_stride, chunk, bar);
+  }
+
+  // 1. decode: warp w takes stages w, w + L/32, ...; lane i reads slot i.
+  // The four words of DECODE stages are loaded at once: one round trip.
+  constexpr int NW = L / 32, DECODE = 4;
+  for (int s0 = t >> 5; s0 < S; s0 += DECODE * NW) {
+    uint32_t o[DECODE], a[DECODE], b[DECODE], c[DECODE];
+#pragma unroll
+    for (int j = 0; j < DECODE; ++j) {
+      const int k = (s0 + j * NW) * RF + lane;
+      if (s0 + j * NW < S) {
+        o[j] = (uint32_t)op[k];
+        a[j] = (uint32_t)src_a[k];
+        b[j] = (uint32_t)src_b[k];
+        c[j] = (uint32_t)imm[k];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < DECODE; ++j) {
+      const int s = s0 + j * NW;
+      if (s >= S) break;
+      const bool on =
+          !((o[j] == OP_BYP || o[j] == OP_OUT) && a[j] == (uint32_t)lane);
+      const uint32_t mask = __ballot_sync(0xffffffffu, on);
+      uint32_t rd = 0;
+      if (on) {
+        list[s * RF + __popc(mask & ((1u << lane) - 1u))] = make_uint2(
+            o[j] | a[j] << 8 | b[j] << 16 | (uint32_t)lane << 24, c[j]);
+        if (o[j] != OP_NOP) rd |= 1u << a[j];
+        if ((READS_SRC_B >> o[j]) & 1u) rd |= 1u << b[j];
+      }
+      rd = __reduce_or_sync(0xffffffffu, rd);
+      if (lane == 0) {
+        rows_read[s] = rd;
+        active[s] = mask;
+      }
+    }
+  }
+  __syncthreads();   // the lists and masks are complete
+
+  // R: rows read before any earlier stage writes them; W: rows written.
+  // The same walk over the stages tracks which of the two register files
+  // holds each row's current value (a stage writes its rows to the other
+  // file) and resolves each list entry to file rows: an operand row r to
+  // r + 32 if file 1 holds it, the destination to the file it does not.
+  uint32_t R = 0, W = 0, loc = 0;        // loc bit r: row r lies in file 1
+  for (int s = 0; s < S; ++s) {
+    const uint32_t mask = active[s];
+    R |= rows_read[s] & ~W;
+    W |= mask;
+    if (s % NW == (t >> 5) && lane < __popc(mask)) {
+      const uint32_t w = list[s * RF + lane].x;
+      const uint32_t a = e_a(w), b = e_b(w), d = e_dst(w);
+      list[s * RF + lane].x = e_op(w) | (a | ((loc >> a) & 1u) << 5) << 8 |
+                              (b | ((loc >> b) & 1u) << 5) << 16 |
+                              (d | (~(loc >> d) & 1u) << 5) << 24;
+    }
+    loc ^= mask;
+  }
+  __syncthreads();   // every entry is resolved
+  const uint32_t load = inplace ? R : 0xffffffffu;
+
+  // 3a. load the rows the stages read (in place) or every row
+  if (bulk) {
+    if (load) {
+      if (inplace && warp0) {
+        if (lane == 0) mbar_expect_tx(bar, (uint32_t)__popc(load) * chunk);
+        __syncwarp();
+        if ((load >> lane) & 1u)
+          bulk_load(rf + lane * L, x + lane * row_stride, chunk, bar);
+      }
+      mbar_wait(bar, 0);
+    }
+  } else if (live) {
+#pragma unroll
+    for (int r = 0; r < RF; ++r)
+      if ((load >> r) & 1u) rf[r * L + t] = x[r * row_stride + t];
+  }
+
+  // 2. the active slots, stage by stage.  Each reads its operands from
+  // the file rows its entry names and writes the other file, so every slot
+  // reads the previous stage's register file and no order is needed among
+  // the slots of a stage.
+  T* col = rf + t;
+  uint32_t next = active[0];
+  for (int s = 0; s < S; ++s) {
+    const int n = __popc(next);
+    if (s + 1 < S) next = active[s + 1];  // the next stage's mask, early
+    const uint2* e = list + s * RF;
+    for (int k0 = 0; k0 < n; k0 += BATCH) {
+      // entries past n hold stale words whose row fields still name rows
+      // of the files; their results are not written
+      uint2 w[BATCH];
+      T va[BATCH], vb[BATCH];
+#pragma unroll
+      for (int k = 0; k < BATCH; ++k) {
+        w[k] = e[k0 + k];
+        va[k] = col[f_a(w[k].x) * L];
+        vb[k] = col[f_b(w[k].x) * L];
+      }
+#pragma unroll
+      for (int k = 0; k < BATCH; ++k)
+        if (k0 + k < n)
+          col[f_dst(w[k].x) * L] =
+              compute<X>(e_op(w[k].x), va[k], vb[k], (int)w[k].y);
+    }
+  }
+
+  // 3b. store the rows written (in place) or every row, each from the file
+  // that holds it
+  const uint32_t store = inplace ? W : 0xffffffffu;
+  if (bulk) {
+    if (store) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();   // every column is in the register files
+      if (warp0 && ((store >> lane) & 1u)) {
+        bulk_store(out + lane * row_stride,
+                   rf + (lane + ((loc >> lane) & 1u) * RF) * L, chunk);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
+    }
+  } else if (live) {
+#pragma unroll
+    for (int r = 0; r < RF; ++r)
+      if ((store >> r) & 1u)
+        out[r * row_stride + t] = col[(r + ((loc >> r) & 1u) * RF) * L];
+  }
+}
+
+// grid (G, ceil(T / LANES)); block (g, y) runs context ctx_ids[g] over
+// columns [y * LANES, y * LANES + LANES) of tile g.
 template <class X>
 __global__ void __launch_bounds__(LANES) tmfu_multi_kernel(
     const int* __restrict__ ctx_ids, const int* __restrict__ op,
@@ -274,10 +510,11 @@ __global__ void __launch_bounds__(LANES) tmfu_multi_kernel(
     int S, int T) {
   const size_t g = blockIdx.x;
   const size_t ctx = (size_t)ctx_ids[g] * (size_t)(S * RF);
-  const size_t tile = g * (size_t)RF * (size_t)T;
-  const size_t col = (size_t)blockIdx.y * LANES + threadIdx.x;
-  run_pipeline<X>(op + ctx, src_a + ctx, src_b + ctx, imm + ctx,
-                  x + tile, out + tile, S, (size_t)T, col, col < (size_t)T);
+  const int col0 = blockIdx.y * LANES;
+  const size_t base = g * (size_t)RF * (size_t)T + (size_t)col0;
+  run_pipeline<X, LANES>(op + ctx, src_a + ctx, src_b + ctx, imm + ctx,
+                         x + base, out + base, S, (size_t)T,
+                         min(LANES, T - col0));
 }
 
 // grid (ceil(B / LANES)); one context over the columns of x [RF, B].
@@ -286,14 +523,9 @@ __global__ void __launch_bounds__(LANES) tmfu_single_kernel(
     const int* __restrict__ op, const int* __restrict__ src_a,
     const int* __restrict__ src_b, const int* __restrict__ imm,
     const typename X::T* x, typename X::T* out, int S, int B) {
-  const size_t col = (size_t)blockIdx.x * LANES + threadIdx.x;
-  run_pipeline<X>(op, src_a, src_b, imm, x, out, S, (size_t)B, col,
-                  col < (size_t)B);
-}
-
-template <class X>
-size_t smem_bytes(int S) {
-  return 2 * RF * LANES * sizeof(typename X::T) + 4 * (size_t)S * RF * sizeof(int);
+  const int col0 = blockIdx.x * LANES;
+  run_pipeline<X, LANES>(op, src_a, src_b, imm, x + col0, out + col0, S,
+                         (size_t)B, min(LANES, B - col0));
 }
 
 template <class K>
@@ -308,7 +540,7 @@ int launch_multi(const void* ctx_ids, const void* op, const void* src_a,
                  const void* src_b, const void* imm, const void* x, void* out,
                  int G, int S, int T, cudaStream_t stream) {
   using E = typename X::T;
-  const size_t smem = smem_bytes<X>(S);
+  const size_t smem = smem_bytes<X, LANES>(S);
   cudaError_t err = allow_smem(tmfu_multi_kernel<X>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)G, (unsigned)((T + LANES - 1) / LANES));
@@ -323,7 +555,7 @@ int launch_single(const void* op, const void* src_a, const void* src_b,
                   const void* imm, const void* x, void* out, int S, int B,
                   cudaStream_t stream) {
   using E = typename X::T;
-  const size_t smem = smem_bytes<X>(S);
+  const size_t smem = smem_bytes<X, LANES>(S);
   cudaError_t err = allow_smem(tmfu_single_kernel<X>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((B + LANES - 1) / LANES));

@@ -3,16 +3,20 @@
 Mapping of the paper's FU (Fig. 2/3) onto the GPU memory hierarchy — the
 counterpart of the Pallas TPU kernels in ``src/repro/kernels/tmfu/kernel.py``:
 
-  * Instruction memory (32x32 RAM32M)  -> the tile's context, 4 x S x 32
-    int32 words, copied once per block from the bank into shared memory.
-  * Register file (32-entry RAM32M)    -> two ping-ponged [32, 128] shared
-    memory buffers; one thread per lane executes the same instruction on
-    an independent kernel iteration (pipeline replication, paper Fig. 4).
-  * DSP48E1 + config bits, no decoder  -> a ``switch`` on the 5-bit opcode,
+  * Instruction memory (32x32 RAM32M)  -> the tile's context, decoded once
+    per block into compact per-stage lists of its *active* slots (8 bytes
+    each) in shared memory.  A BYP or OUT of its own row (the identity
+    padding of ``make_context``) is not active and costs nothing.
+  * Register file (32-entry RAM32M)    -> two [32, lanes] register files in
+    shared memory; one thread per lane executes the same instruction on an
+    independent kernel iteration (pipeline replication, paper Fig. 4).
+  * DSP48E1 + config bits, no decoder  -> a ``switch`` on the opcode,
     uniform across the block; operands read by run-time row index (the
     5-bit RF addresses).
-  * Linear FU->FU interconnect         -> stage s writes its full result
-    stream, which IS stage s+1's register file.
+  * Linear FU->FU interconnect         -> a stage reads each operand from
+    the file that holds its row's current value and writes its results to
+    the other file, so every slot sees the previous stage's register file,
+    as if stage s+1 received stage s's full result stream.
 
 Which TPU kernel each entry point replaces:
 
@@ -20,18 +24,21 @@ Which TPU kernel each entry point replaces:
       (``_tmfu_kernel_multi`` over ``_run_stages``): CUDA ``tmfu_multi``
   ``tmfu_pipeline_rf_multi_donated``  <- ``tmfu_pipeline_rf_multi_donated``
       (``input_output_aliases``): CUDA ``tmfu_multi`` called with
-      ``out == x``; safe because a block reads its whole tile into shared
-      memory before it writes and touches no other block's columns
+      ``out == x``; safe because a block loads every row it reads before
+      it stores any and touches no other block's columns
   ``tmfu_pipeline_rf``                <- ``tmfu_pipeline_rf``
       (``_tmfu_kernel``): CUDA ``tmfu_single``
 
-What bounds them on an H100: ``G x 32 x T x itemsize`` bytes in and the
-same out (32 KiB per float32 tile of 128 lanes) plus ``4 G`` bytes of ids
-and at most ``N x 8 KiB`` of instructions, against ``S x 32 x T``
-lane-operations per tile, each two shared-memory reads and one write.  They
-are bound by device-memory bytes or by shared-memory traffic and instruction
-rate, never by the tensor cores.  The source, ``csrc/tmfu.cu``, carries the
-design notes.
+What bounds them on an H100: device-memory bytes.  A context reads few
+input rows before it writes them (R) and writes few rows (W) —
+``context_footprint`` computes both on the host, by the same rule as the
+kernels' prologue.  In place, a block loads R and stores W, so a tile
+moves ``(|R| + |W|) x T x itemsize`` bytes; out of place every row is
+stored, ``2 x 32 x T x itemsize`` (32 KiB per float32 tile of 128 lanes).
+Add ``4 G`` bytes of ids and at most ``N x 8 KiB`` of instructions.  The
+operations, a few hundred active lane-operations a tile, are far below the
+bytes; the tensor cores play no part.  The source, ``csrc/tmfu.cu``,
+carries the design notes.
 
 The CUDA source is compiled with ``nvcc`` at first use into a shared
 library with a plain C interface and loaded with ``ctypes``; nothing is
@@ -56,6 +63,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.core.dfg import Op
 from repro_torch.core.isa import IM_DEPTH, RF_DEPTH
 from repro_torch.core.vm import run_stages
 
@@ -186,6 +194,45 @@ def _imm_from_i32(imm_i32, dtype):
     if dtype.is_floating_point:
         return imm_i32.view(torch.float32).to(dtype)
     return imm_i32
+
+
+# ---------------------------------------------------------------- footprint
+#: opcodes that read their second operand; every opcode but NOP reads src_a
+READS_SRC_B = (Op.ADD, Op.SUB, Op.MUL, Op.MAX, Op.MIN, Op.AND, Op.OR, Op.XOR)
+
+
+def context_footprint(op, src_a, src_b):
+    """The rule the kernels' prologue applies to a context, on the host.
+
+    ``op/src_a/src_b`` are ``[..., S, 32]`` (numpy or torch, any device).
+    Returns ``(active, rows_read, rows_written)`` as bool tensors:
+
+    * ``active [..., S, 32]`` — slot ``(s, i)`` changes row ``i``: it is
+      anything but a BYP or OUT with ``src_a == i`` (those pass row ``i`` on
+      unchanged and cost the kernels nothing);
+    * ``rows_read [..., 32]`` (R) — rows some active slot reads before any
+      earlier stage has written them: the input rows the result depends on;
+    * ``rows_written [..., 32]`` (W) — rows some active slot writes (slot
+      ``i`` writes row ``i``).  Every other row of the result is the input
+      row.
+
+    The in-place kernel loads R and stores W, nothing else; the
+    out-of-place kernels store all 32 rows.  Nothing on the serving path
+    calls this; the tests and ``chip_smoke.py`` do.
+    """
+    op, src_a, src_b = (torch.as_tensor(t) for t in (op, src_a, src_b))
+    slot = torch.arange(IM_DEPTH, device=op.device)
+    rows = torch.arange(RF_DEPTH, device=op.device)
+    active = ~(((op == Op.BYP) | (op == Op.OUT)) & (src_a == slot))
+    uses_a = active & (op != Op.NOP)
+    uses_b = active & torch.isin(op, torch.tensor(READS_SRC_B,
+                                                  device=op.device))
+    reads = (((src_a[..., None] == rows) & uses_a[..., None])
+             | ((src_b[..., None] == rows) & uses_b[..., None])).any(-2)
+    written = active.int().cumsum(-2)
+    written_before = (written - active.int()) > 0            # [..., S, 32]
+    rows_read = (reads & ~written_before).any(-2)
+    return active, rows_read, active.any(-2)
 
 
 # ------------------------------------------------------------ multi-context

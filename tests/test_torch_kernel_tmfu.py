@@ -232,9 +232,18 @@ def test_build_is_lazy_and_names_the_source():
     flags = " ".join(tkernel.NVCC_FLAGS)
     assert "sm_90a" in flags and "-fmad=false" in flags
     assert "fast_math" not in flags and "ftz" not in flags
+    assert "-prec-div=false" not in flags and "-prec-sqrt=false" not in flags
     src = tkernel.SOURCE.read_text()
     assert 'extern "C" int tmfu_multi' in src
     assert 'extern "C" int tmfu_single' in src
+    # the source keeps the explicit round-to-nearest intrinsics and asks for
+    # no fused or approximate arithmetic itself
+    for rn in ("__fadd_rn", "__fsub_rn", "__fmul_rn", "__float2bfloat16_rn"):
+        assert rn in src
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    for banned in ("fma", "__fdividef", "__expf", "FP_CONTRACT", "fast_math",
+                   "ftz"):
+        assert banned not in code, banned
 
 
 # ------------------------------------------------------------------ on a GPU

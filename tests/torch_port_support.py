@@ -2,6 +2,11 @@
 
 * ``all_opcodes_context(kind)`` — one hand-built context that uses all 18
   opcodes, as host arrays.
+* ``swap_context``, ``chain_context``, ``dense_context``,
+  ``identity_context`` — contexts that exercise the kernels' sparse
+  schedule (``SPECIAL_CONTEXTS`` names them with the all-opcodes one):
+  rows read and written within one stage, a row read right after it is
+  written, every slot active, no slot active.
 * ``special_lanes(kind, n_lanes)`` — a ``[32, n_lanes]`` register-file
   image whose lanes carry every ordered pair of the special values
   (+-0, +-inf, NaN, large magnitudes; for int32: INT_MIN, INT_MAX, values
@@ -19,8 +24,8 @@ implementations is meaningful:
   arithmetic, or gives another NaN payload, still agrees.
 * No arithmetic on the chosen values yields a denormal.
 
-``chip_smoke.py`` keeps a copy of ``all_opcodes_context`` and
-``special_lanes`` (it may import nothing from ``tests/``).
+``chip_smoke.py`` keeps a copy of the contexts and of ``special_lanes``
+(it may import nothing from ``tests/``).
 """
 
 from __future__ import annotations
@@ -76,6 +81,72 @@ def all_opcodes_context(kind: str, s_max: int = 16) -> dict:
     return {"op": op, "src_a": a, "src_b": b, "imm": imm,
             "out_idx": np.arange(RF, dtype=np.int32),
             "n_inputs": RF, "n_outputs": RF, "context_bytes": 0}
+
+
+def _identity(s_max: int):
+    op = np.full((s_max, RF), BYP, np.int32)
+    a = np.tile(np.arange(RF, dtype=np.int32), (s_max, 1))
+    return op, a, a.copy(), np.zeros((s_max, RF), np.float64)
+
+
+def _ctx(op, a, b, imm) -> dict:
+    return {"op": op, "src_a": a, "src_b": b, "imm": imm}
+
+
+def identity_context(kind: str, s_max: int = 16) -> dict:
+    """Every slot passes its own row on (BYP, and OUT in the last stage)."""
+    op, a, b, imm = _identity(s_max)
+    op[-1, 1::2] = OUT
+    return _ctx(op, a, b, imm)
+
+
+def swap_context(kind: str, s_max: int = 16) -> dict:
+    """Stage 0 swaps rows 3 and 7 (slot 3 reads 7, slot 7 reads 3) and, in
+    the same stage, computes rows 5 and 9 from each other."""
+    op, a, b, imm = _identity(s_max)
+    op[0, 3], a[0, 3] = BYP, 7
+    op[0, 7], a[0, 7] = OUT, 3
+    op[0, 5], a[0, 5], b[0, 5] = ADD, 9, 5
+    op[0, 9], a[0, 9], b[0, 9] = SUB, 5, 9
+    return _ctx(op, a, b, imm)
+
+
+def chain_context(kind: str, s_max: int = 16) -> dict:
+    """Stage s writes row 1 + s % 3 from the row stage s - 1 wrote (and from
+    row 0): every read after stage 0 is of a row written just before."""
+    imms = FLOAT_IMMS if kind == "float" else INT_IMMS
+    op, a, b, imm = _identity(s_max)
+    cycle = (ADDC, MUL, SUB, MULC, ADD, RSUBC)
+    prev = 0
+    for s in range(s_max):
+        dst = 1 + s % 3
+        op[s, dst], a[s, dst], b[s, dst] = cycle[s % len(cycle)], prev, 0
+        imm[s, dst] = imms[s % len(imms)]
+        prev = dst
+    return _ctx(op, a, b, imm)
+
+
+def dense_context(kind: str, s_max: int = 16, seed: int = 0) -> dict:
+    """Every one of ``s_max x 32`` slots active: opcodes drawn over all 18,
+    sources over all 32 rows, made from ``numpy.random.RandomState(seed)``;
+    a BYP or OUT that drew its own row reads the next one instead."""
+    rng = np.random.RandomState(seed)
+    imms = FLOAT_IMMS if kind == "float" else INT_IMMS
+    op = rng.randint(0, N_OPS, size=(s_max, RF)).astype(np.int32)
+    a = rng.randint(0, RF, size=(s_max, RF)).astype(np.int32)
+    b = rng.randint(0, RF, size=(s_max, RF)).astype(np.int32)
+    slot = np.arange(RF)
+    own = ((op == BYP) | (op == OUT)) & (a == slot)
+    a[own] = (a[own] + 1) % RF
+    imm = np.asarray(imms, np.float64)[rng.randint(0, len(imms),
+                                                   size=(s_max, RF))]
+    return _ctx(op, a, b, imm)
+
+
+#: the hand-built contexts beside the nine benchmark kernels
+SPECIAL_CONTEXTS = {"all_opcodes": all_opcodes_context,
+                    "swap": swap_context, "chain": chain_context,
+                    "dense": dense_context, "identity": identity_context}
 
 
 def special_lanes(kind: str, n_lanes: int = 256, seed: int = 0) -> np.ndarray:
