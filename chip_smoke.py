@@ -40,12 +40,40 @@ Phases, each printing one JSON line:
                to rtol = atol = 1e-5.  One ``Overlay.__call__`` per kernel.
                The kernels' launch counters are set to 0 before this phase
                and read after it.
-5. ``kernels`` one line with every kernel's launches on the serving path,
-               error, time, plain time and bound; the card's line from
-               nvidia-smi; and the verdict as the last line.
+5. ``fleet``   ``ShardedOverlayServer`` on the card, every replica on its own
+               CUDA stream, over the same trace: 2 and 4 replicas with banks
+               of 4, residency routing and work stealing, and 2 replicas
+               with banks of 2 and two rounds in flight (nearly every round
+               evicts); each drained by ``flush``, ``as_completed`` and
+               ``flush_sync``, every request bit for bit equal to the serve
+               phase's single-bank ``flush_sync`` and plain executor.  An
+               elastic run feeds the trace in bursts through ``pump_once``
+               with a ``PressureAutoscaler`` (1 to 4 replicas), one forced
+               ``add_replica`` and one ``drain_replica`` under load: every
+               ticket delivered exactly once, bit for bit.  One warm
+               4-replica ``flush`` runs under ``torch.profiler``: the
+               multi-context kernels must run on exactly one stream a
+               replica, none the default stream, and every device operation
+               a replica issues (its H2D copies above all) on its own
+               stream; whether kernels of two replicas overlapped is
+               reported, not required.  Counters set to 0 before, read
+               after.
+6. ``edge``    an ``OverlaySocketServer`` on 127.0.0.1 (an ephemeral port,
+               its asyncio loop on a thread of this process) serves an
+               ``OverlayGateway`` over a 2-replica fleet driven by an
+               ``AutoPump`` thread; the port's ``RemoteOverlayClient``
+               submits the trace and streams the results back (msgpack if
+               it imports, JSON otherwise), each bit for bit equal to the
+               oracles above; requests/s and the client's delivery latency.
+               Every wait has its own timeout.  Counters set to 0 before,
+               read after.
+7. ``kernels`` one line with every kernel's launches (summed over the
+               serve, fleet and edge paths, and by path), error, time, plain
+               time and bound; the card's line from nvidia-smi; and the
+               verdict as the last line.
 
 ``--profile`` adds one warm ``flush`` under ``torch.profiler`` (device time
-by kernel name, the device's idle share of the drain) before step 5.
+by kernel name, the device's idle share of the drain) before step 7.
 """
 
 import json
@@ -659,17 +687,23 @@ def make_trace(kernels, names, n_requests, lanes, n_tenants):
     return trace
 
 
+def host_outputs(outs) -> list:
+    """A request's outputs as numpy arrays (device tensors read back)."""
+    return [u.cpu().numpy() if isinstance(u, torch.Tensor) else np.asarray(u)
+            for u in outs]
+
+
 def same_outputs(a, b, what):
     assert len(a) == len(b), what
-    for j, (u, v) in enumerate(zip(a, b)):
-        u = u.cpu().numpy() if isinstance(u, torch.Tensor) else np.asarray(u)
-        v = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    for j, (u, v) in enumerate(zip(host_outputs(a), host_outputs(b))):
         if u.tobytes() != v.tobytes():
             raise AssertionError(f"{what}: output {j} differs")
 
 
-def phase_serve(kernels, names, device) -> dict:
-    """Drive the serving path; returns the launch counts it caused."""
+def phase_serve(kernels, names, device):
+    """Drive the serving path; returns the launch counts it caused and the
+    oracle of the later phases: per request of the trace, the single-bank
+    ``flush_sync`` outputs and the plain executor's, as numpy arrays."""
     from repro_torch.core import vm
     from repro_torch.core.overlay import Overlay
     from repro_torch.kernels.tmfu import kernel as tk
@@ -701,6 +735,8 @@ def phase_serve(kernels, names, device) -> dict:
             dt = time.perf_counter() - t0
             assert sorted(res) == sorted(tickets), f"{mode}: lost tickets"
             drains[mode] = ([res[t] for t in tickets], dt)
+        if capacity == 4:
+            oracle_sync = [host_outputs(o) for o in drains["flush_sync"][0]]
         for mode in ("as_completed", "flush_sync"):
             for i in range(n_requests):
                 same_outputs(drains[mode][0][i], drains["flush"][0][i],
@@ -748,6 +784,7 @@ def phase_serve(kernels, names, device) -> dict:
     counts = dict(tk.launch_counts)          # read right behind the main path
 
     # every request: the DFG oracle on the CPU, the plain executor bit for bit
+    oracle_plain = []
     for i, (k, xs, _) in enumerate(trace):
         ref = vm.dfg_eval(k.dfg, {n: torch.from_numpy(v)
                                   for n, v in zip(k.dfg.inputs, xs)})
@@ -763,6 +800,7 @@ def phase_serve(kernels, names, device) -> dict:
             np.testing.assert_allclose(got[j], ref[o].numpy(),
                                        rtol=1e-5, atol=1e-5)
         same_outputs(got, list(plain), f"plain executor, request {i}")
+        oracle_plain.append(host_outputs(list(plain)))
     for n in names:
         same_outputs(call_outs[n], delivered[4][names.index(n)],
                      f"Overlay.__call__ {n}")
@@ -776,7 +814,446 @@ def phase_serve(kernels, names, device) -> dict:
                       "dfg_eval_rtol_atol": 1e-5,
                       "plain_executor": "bit-exact",
                       "drains_agree": "bit-exact"}})
+    return counts, {"flush_sync": oracle_sync, "plain": oracle_plain}
+
+
+#: the fleet phase's drains: (replicas, bank capacity, rounds in flight,
+#: work stealing).  Two banks of 2 with two rounds in flight hold 4 of the
+#: 9 contexts, both slots of a bank pinned while its rounds run: nearly
+#: every round evicts, and its slot writes queue behind a running round.
+FLEET_CONFIGS = ((2, 4, 2, False), (2, 4, 2, True), (4, 4, 2, False),
+                 (4, 4, 2, True), (2, 2, 2, True))
+#: every wait of the fleet and edge phases gives up after this long
+WAIT_S = 120.0
+
+
+def check_against(got: dict, tickets, oracle, what) -> None:
+    """Every ticket delivered, and each request's outputs equal to both
+    oracles bit for bit (the single-bank ``flush_sync`` and the plain
+    executor of the serve phase)."""
+    missing = [t for t in tickets if t not in got]
+    assert not missing, f"{what}: {len(missing)} tickets not delivered"
+    for i, t in enumerate(tickets):
+        outs = host_outputs(got[t])
+        same_outputs(outs, oracle["flush_sync"][i],
+                     f"{what}, request {i} vs single-bank flush_sync")
+        same_outputs(outs, oracle["plain"][i],
+                     f"{what}, request {i} vs plain executor")
+
+
+def fleet(device, n, cap, inflight, steal, **kw):
+    """A fleet of ``n`` replicas on the one card, one stream each."""
+    from repro_torch.launch.serve import ShardedOverlayServer
+    srv = ShardedOverlayServer(
+        n_replicas=n, bank_capacity=cap, tile=TILE, max_inflight=inflight,
+        round_kernels=max(1, cap // 2), quantum_tiles=1024, steal=steal,
+        devices=[device], **kw)
+    streams = {rep.stream.cuda_stream for rep in srv.replicas}
+    assert len(streams) == n, "replicas share a stream"
+    assert torch.cuda.default_stream(device).cuda_stream not in streams
+    return srv
+
+
+def fleet_elastic(trace, device, oracle) -> dict:
+    """The trace in six bursts through ``pump_once`` (the pump thread's
+    unit of work), a ``PressureAutoscaler`` (1 to 4 replicas) acting on
+    every step, one forced ``add_replica`` and one ``drain_replica`` while
+    work is queued and in flight.  Every ticket is claimed exactly once."""
+    from repro_torch.sched import PressureAutoscaler
+    # grow at more than four requests' tiles queued a replica; shrink a
+    # replica idle for eight observations (the bursts keep them busy, the
+    # idle ticks at the end do not)
+    auto = PressureAutoscaler(up_tiles=4 * LANES // TILE, up_rounds=1,
+                              down_rounds=8, cooldown_s=0.0, min_replicas=1,
+                              max_replicas=4)
+    srv = fleet(device, 1, 4, 2, True, autoscaler=auto)
+    tickets, got = [], {}
+
+    def claim():
+        for t in tickets:
+            if t not in got:
+                out = srv.try_result(t)
+                if out is not None:
+                    got[t] = out
+
+    t0 = time.perf_counter()
+    burst = len(trace) // 6
+    forced = {}
+    for b in range(6):
+        tickets += [srv.submit(k, xs, tenant=tn)
+                    for k, xs, tn in trace[b * burst:(b + 1) * burst]]
+        if b == 0:
+            forced["add_replica"] = srv.add_replica()
+        if b == 3:      # a burst just queued, earlier rounds in flight
+            assert srv.pending > 0 and srv.n_replicas > 1
+            forced["drain_replica"] = srv.drain_replica(0)
+        for _ in range(3):
+            srv.pump_once()
+        claim()
+    deadline = time.perf_counter() + WAIT_S
+    while srv.pending:
+        srv.pump_once()
+        claim()
+        assert time.perf_counter() < deadline, "elastic drain hung"
+    claim()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for _ in range(24):                 # idle ticks: where scale-downs come
+        srv.pump_once()
+    for t in tickets:
+        try:
+            srv.try_result(t)
+        except KeyError:
+            continue
+        raise AssertionError(f"ticket {t} was claimable twice")
+    check_against(got, tickets, oracle, "elastic")
+    st = srv.stats()
+    assert srv.n_scale_ups > 1 and srv.n_scale_downs >= 1, st
+    return {"config": "elastic", "requests": len(trace), "seconds": dt,
+            "requests_per_s": len(trace) / dt,
+            "forced": {"add_replica": forced["add_replica"],
+                       "drain_replica": {k: forced["drain_replica"][k]
+                                         for k in ("replica",
+                                                   "evacuated_requests",
+                                                   "orphaned_results")}},
+            "scale_ups": srv.n_scale_ups, "scale_downs": srv.n_scale_downs,
+            "evacuated_requests": srv.n_evacuated_requests,
+            "peak_replicas": srv.peak_replicas,
+            "replicas_at_end": srv.n_replicas,
+            "route_hits": srv.n_route_hits, "route_misses": srv.n_route_misses,
+            "migrations": srv.n_migrations, "steals": srv.n_steals,
+            "delivered_exactly_once": len(got)}
+
+
+def annotate_replicas(srv) -> None:
+    """Mark every replica's device work in a profile: its launch and its
+    delivery run inside ``record_function("replica<i>")``.  The stream
+    they run on is the replica's own doing; this only names them."""
+    from torch.profiler import record_function
+    for i, rep in enumerate(srv.replicas):
+        for name in ("_launch_round", "_retire_oldest"):
+            method = getattr(rep, name)
+
+            def named(*a, _m=method, _n=f"replica{i}", **kw):
+                with record_function(_n):
+                    return _m(*a, **kw)
+            setattr(rep, name, named)
+
+
+def trace_streams(path, n_replicas) -> dict:
+    """Read a chrome trace of the 4-replica flush: the stream of every
+    device event, the replica whose annotated host code issued it (by the
+    runtime call's correlation id), the marker copies that name each
+    stream, the device's busy time and the overlap of kernels of
+    different replicas."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    device, runtime, spans = [], {}, []
+    for e in events:
+        cat, args = e.get("cat", ""), e.get("args") or {}
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append(e)
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            runtime[args["correlation"]] = e
+        elif cat == "user_annotation" and e.get("name", "").startswith(
+                "replica"):
+            spans.append(e)
+
+    def issuer(e):
+        r = runtime.get((e.get("args") or {}).get("correlation"))
+        if r is None:
+            return None
+        for s in spans:
+            if (s.get("tid") == r.get("tid") and s["ts"] <= r["ts"]
+                    <= s["ts"] + s.get("dur", 0)):
+                return int(s["name"][len("replica"):])
+        return None
+
+    marker, by_replica, tmfu = {}, {}, []
+    for e in device:
+        args = e["args"]
+        if e["name"].startswith("Memcpy HtoD") and args.get("bytes") in (
+                MARK_DEFAULT, *(MARK_REPLICA + i for i in range(n_replicas))):
+            marker[args["bytes"]] = args["stream"]
+            continue
+        who = issuer(e)
+        if who is not None:
+            by_replica.setdefault(who, {}).setdefault(
+                "H2D" if e["name"].startswith("Memcpy HtoD") else
+                "other", set()).add(args["stream"])
+        if "tmfu_multi" in e["name"]:
+            tmfu.append((e["ts"], e["ts"] + e.get("dur", 0), args["stream"],
+                         who))
+    intervals = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in device
+                       if e["args"].get("bytes") not in marker)
+    busy, end = 0.0, None
+    for a, b in intervals:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    overlap_pairs, overlap_us = 0, 0.0
+    for i, (a0, a1, sa, _) in enumerate(tmfu):
+        for b0, b1, sb, _ in tmfu[i + 1:]:
+            if sa != sb and min(a1, b1) > max(a0, b0):
+                overlap_pairs += 1
+                overlap_us += min(a1, b1) - max(a0, b0)
+    names = sorted({e["name"][:60] for e in device})
+    return {"marker": marker, "by_replica": by_replica, "tmfu": tmfu,
+            "device_names": names, "n_runtime": len(runtime),
+            "n_spans": len(spans),
+            "busy_us": busy, "overlap_pairs": overlap_pairs,
+            "overlap_us": overlap_us}
+
+
+#: byte counts of the marker copies that name the streams in a profile
+MARK_DEFAULT, MARK_REPLICA = 13, 17
+
+
+def fleet_profile(srv, trace, device) -> dict:
+    """One warm flush of the trace on the 4-replica fleet under
+    ``torch.profiler``.  Asserts that the multi-context kernels ran on
+    exactly one stream a replica, none of them the default stream, and
+    that every device operation a replica issued (its H2D copies above
+    all) ran on that replica's stream.  Reports, without asserting,
+    whether kernels of two replicas overlapped in time."""
+    from torch.profiler import ProfilerActivity, profile
+    n = srv.n_replicas
+    annotate_replicas(srv)
+    tickets = [srv.submit(k, xs, tenant=t) for k, xs, t in trace]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.empty(MARK_DEFAULT, dtype=torch.uint8).to(device)
+        for i, rep in enumerate(srv.replicas):
+            with rep.on_stream():
+                torch.empty(MARK_REPLICA + i, dtype=torch.uint8).to(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = srv.flush()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "fleet_profile.json"
+    prof.export_chrome_trace(str(path))
+    tr = trace_streams(path, n)
+    seen = {k: tr[k] for k in ("marker", "device_names", "n_runtime",
+                               "n_spans")}
+    assert len(tr["marker"]) == n + 1, f"marker copies not traced: {seen}"
+    default = tr["marker"][MARK_DEFAULT]
+    own = [tr["marker"][MARK_REPLICA + i] for i in range(n)]
+    assert len(set(own)) == n and default not in own, tr["marker"]
+    kernel_streams = {s for _, _, s, _ in tr["tmfu"]}
+    assert tr["tmfu"], f"no tmfu_multi launch in the profile: {seen}"
+    assert kernel_streams == set(own), (
+        f"tmfu_multi ran on streams {sorted(kernel_streams)}, the replicas "
+        f"own {own}, the default stream is {default}")
+    for i in range(n):
+        seen = tr["by_replica"].get(i, {})
+        assert seen.get("H2D") == {own[i]}, (
+            f"replica {i}'s H2D copies ran on {seen.get('H2D')}, its "
+            f"stream is {own[i]}")
+        assert seen.get("other", {own[i]}) == {own[i]}, (
+            f"replica {i}'s device work ran on {seen['other']}")
+        assert {s for _, _, s, w in tr["tmfu"] if w == i} <= {own[i]}
+    path.unlink()                     # kept above only when a check fails
+    return {"tickets": tickets, "got": got,
+            "report": {"what": "one warm flush, 4 replicas, bank 4",
+                       "wall_ms": wall_ms,
+                       "device_busy_ms": tr["busy_us"] / 1e3,
+                       "device_idle_share": 1 - tr["busy_us"] / 1e3 / wall_ms,
+                       "tmfu_launches": len(tr["tmfu"]),
+                       "tmfu_streams": len(kernel_streams),
+                       "default_stream_used_by_tmfu": default in kernel_streams,
+                       "h2d_on_own_stream": True,
+                       "kernels_of_two_replicas_overlapped":
+                           tr["overlap_pairs"] > 0,
+                       "overlap_pairs": tr["overlap_pairs"],
+                       "overlap_ms": tr["overlap_us"] / 1e3}}
+
+
+def phase_fleet(kernels, names, device, oracle) -> dict:
+    """``ShardedOverlayServer`` on the card: every configuration of
+    ``FLEET_CONFIGS`` drained by ``flush``, ``as_completed`` and
+    ``flush_sync``; the elastic run; the profiled 4-replica flush.
+    Returns the launch counts of this path."""
+    from repro_torch.kernels.tmfu import kernel as tk
+    from repro_torch.launch.mesh import device_sharing
+    from repro_torch.telemetry import check_stats
+    trace = make_trace(kernels, names, N_REQUESTS, LANES, N_TENANTS)
+    tk.reset_launch_counts()
+    reports, results, profiled = [], [], None
+    for n, cap, inflight, steal in FLEET_CONFIGS:
+        srv = fleet(device, n, cap, inflight, steal)
+        times = {}
+        for mode in ("flush", "as_completed", "flush_sync"):
+            tickets = [srv.submit(k, xs, tenant=t) for k, xs, t in trace]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "flush":
+                res = srv.flush()
+            elif mode == "as_completed":
+                res = dict(srv.as_completed())
+            else:
+                res = srv.flush_sync()
+            torch.cuda.synchronize()
+            times[mode] = time.perf_counter() - t0
+            results.append((f"{n} replicas, bank {cap}, steal {steal}: "
+                            f"{mode}", res, tickets))
+        st = srv.stats()
+        check_stats("fleet", st)
+        assert st["pending"] == 0
+        if n * cap < len(names):
+            assert st["evictions"] > 0, "the banks must evict on 9 kernels"
+        reports.append({
+            "replicas": n, "bank_capacity": cap, "max_inflight": inflight,
+            "router": st["router"], "requests": N_REQUESTS,
+            "flush_s": times["flush"],
+            "requests_per_s": N_REQUESTS / times["flush"],
+            "as_completed_s": times["as_completed"],
+            "flush_sync_s": times["flush_sync"],
+            "device_sharing": device_sharing(srv.devices),
+            "route_hits": st["route_hits"],
+            "route_misses": st["route_misses"],
+            "migrations": st["migrations"], "steals": st["steals"],
+            "rounds": st["rounds"], "evictions": st["evictions"],
+            "peak_replicas": st["peak_replicas"]})
+        if (n, cap, steal) == (4, 4, False):
+            profiled = srv
+    elastic = fleet_elastic(trace, device, oracle)
+    prof = fleet_profile(profiled, trace, device)
+    torch.cuda.synchronize()
+    counts = dict(tk.launch_counts)          # read right behind the main path
+    for what, res, tickets in results:
+        check_against(res, tickets, oracle, what)
+    check_against(prof["got"], prof["tickets"], oracle, "profiled flush")
+    assert tk.launch_counts == counts, "the comparisons launched a kernel"
+    if counts["tmfu_multi_inplace"] <= 0:
+        raise AssertionError("tmfu_multi_inplace was not launched on the "
+                             "fleet path")
+    emit({"phase": "fleet", "configs": reports, "elastic": elastic,
+          "profile": prof["report"], "launches": counts,
+          "checked": {"drains": len(results) + 1, "requests": N_REQUESTS,
+                      "against": "single-bank flush_sync and plain "
+                                 "executor of the serve phase",
+                      "tolerance": "bit-exact"}})
     return counts
+
+
+class LoopThread:
+    """An asyncio event loop on a thread of its own (the socket server's);
+    every call into it waits at most ``WAIT_S``."""
+
+    def __init__(self):
+        import asyncio
+        import threading
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name="edge-server-loop", daemon=True)
+        self.thread.start()
+
+    def run(self, coro):
+        import asyncio
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            WAIT_S)
+
+    def close(self):
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(WAIT_S)
+        assert not self.thread.is_alive(), "the server loop did not stop"
+        self.loop.close()
+
+
+def phase_edge(kernels, names, device, oracle) -> dict:
+    """The network edge on the card: an ``OverlaySocketServer`` on
+    127.0.0.1 (an ephemeral port; its asyncio loop on a thread of this
+    process) serves an ``OverlayGateway`` over a 2-replica
+    ``ShardedOverlayServer`` that an ``AutoPump`` thread drives.  The
+    port's ``RemoteOverlayClient`` submits the trace and streams the
+    results back; each is held against the serve phase's oracles.
+    Returns the launch counts of this path."""
+    import asyncio
+    from repro_torch.kernels.tmfu import kernel as tk
+    from repro_torch.launch.gateway import OverlayGateway
+    from repro_torch.launch.socket_gateway import (OverlaySocketServer,
+                                                   RemoteOverlayClient)
+    from repro_torch.launch.transport import HAVE_MSGPACK
+    from repro_torch.telemetry import check_stats
+    trace = make_trace(kernels, names, N_REQUESTS, LANES, N_TENANTS)
+    srv = fleet(device, 2, 4, 2, False)
+    loop = LoopThread()
+    gateway = OverlayGateway(srv, max_fleet_tiles=8 * LANES // TILE,
+                             poll_interval=0.001)
+    server = OverlaySocketServer(gateway, "127.0.0.1", 0)
+    tk.reset_launch_counts()
+    try:
+        loop.run(server.start())
+
+        async def client():
+            got, t_sub, t_got = {}, {}, {}
+            async with RemoteOverlayClient("127.0.0.1", server.port,
+                                           tenant="edge",
+                                           session="smoke") as c:
+                async def collect(n):
+                    # results() ends whenever nothing is outstanding, which
+                    # happens between submits: go round until all are in
+                    while len(got) < n:
+                        async for t, outs in c.results():
+                            t_got[t] = time.perf_counter()
+                            got[t] = outs
+                        await asyncio.sleep(0.0005)
+                t0 = time.perf_counter()
+                reader = None
+                tickets = []
+                for k, xs, _ in trace:
+                    ts = time.perf_counter()
+                    t = await asyncio.wait_for(c.submit(k, xs), WAIT_S)
+                    t_sub[t] = ts
+                    tickets.append(t)
+                    if reader is None:
+                        reader = asyncio.ensure_future(collect(len(trace)))
+                await asyncio.wait_for(reader, WAIT_S)
+                dt = time.perf_counter() - t0
+                codec = c.codec
+            return tickets, got, t_sub, t_got, dt, codec
+
+        tickets, got, t_sub, t_got, dt, codec = asyncio.run(
+            asyncio.wait_for(client(), WAIT_S))
+        torch.cuda.synchronize()
+        counts = dict(tk.launch_counts)      # read right behind the main path
+        stats = loop.run(_edge_stats(server))
+    finally:
+        loop.run(server.aclose())
+        loop.run(gateway.aclose())
+        loop.close()
+    check_stats("socket", stats["socket"])
+    assert stats["socket"]["wire_rejects"] == 0
+    check_against(got, tickets, oracle, "edge")
+    assert tk.launch_counts == counts, "the comparisons launched a kernel"
+    if counts["tmfu_multi_inplace"] <= 0:
+        raise AssertionError("tmfu_multi_inplace was not launched on the "
+                             "edge path")
+    lat = np.asarray([t_got[t] - t_sub[t] for t in tickets]) * 1e3
+    emit({"phase": "edge", "codec": codec, "msgpack": HAVE_MSGPACK,
+          "replicas": 2, "bank_capacity": 4, "requests": len(trace),
+          "seconds": dt, "requests_per_s": len(trace) / dt,
+          "client_latency_ms": {f"p{q}": float(np.percentile(lat, q))
+                                for q in (50, 95, 99)},
+          "wire_bytes_in": stats["socket"]["wire_bytes_in"],
+          "wire_bytes_out": stats["socket"]["wire_bytes_out"],
+          "edge_queued": stats["socket"]["gateway"]["edge_queued"],
+          "pump_rounds": stats["pump_rounds"], "launches": counts,
+          "checked": {"requests": len(trace), "tolerance": "bit-exact",
+                      "against": "single-bank flush_sync and plain "
+                                 "executor of the serve phase"}})
+    return counts
+
+
+async def _edge_stats(server):
+    return {"socket": server.stats(),
+            "pump_rounds": server.gateway.pump.n_pump_rounds}
 
 
 def phase_profile(kernels, names, device) -> None:
@@ -836,9 +1313,13 @@ def main() -> int:
     kernels = {n: compile_program(benchmark(n)) for n in names}
     records = phase_kernels(kernels, names, device)
     phase_timing(kernels, names, device)
-    counts = phase_serve(kernels, names, device)
+    counts, oracle = phase_serve(kernels, names, device)
+    by_path = {"serve": counts,
+               "fleet": phase_fleet(kernels, names, device, oracle)}
+    by_path["edge"] = phase_edge(kernels, names, device, oracle)
     for name, rec in records.items():
-        rec["launches"] = counts[name]
+        rec["launches"] = sum(c[name] for c in by_path.values())
+        rec["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
     torch.cuda.synchronize()
     if "--profile" in sys.argv[1:]:
         phase_profile(kernels, names, device)

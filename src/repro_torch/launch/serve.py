@@ -23,17 +23,36 @@ pipeline (``Overlay.plan/assemble/execute/collect``, see core/overlay.py):
   pinning, tickets): per-tenant token-bucket ADMISSION
   (``sched.admission``) and round formation via a ``RoundPolicy``
   (``sched.rounds``: deficit round-robin by default, cross-tenant
-  coalescing and latency-adaptive round sizing as drop-ins).
+  coalescing and latency-adaptive round sizing as drop-ins), and — for
+  the sharded fleet — replica ROUTING via a ``RouterPolicy``
+  (``sched.routing``: residency affinity, optionally with cross-replica
+  work stealing).  ``sched.pump.AutoPump`` wraps either engine with a
+  background drain thread so concurrent ``submit`` makes progress
+  without an explicit ``flush``.
 * In-flight rounds pin their contexts in the ``ContextBank`` so LRU
   eviction can never reassign a slot under a launched round.
+* Every device operation of a server runs on the server's own CUDA
+  stream, whichever thread drives it (``OverlayServer.on_stream``).
 
-The engine runs on the CUDA device unless ``device="cpu"`` is passed.
+``ShardedOverlayServer`` scales the engine to N replicas, each an
+``OverlayServer`` with its own bank, behind the router policy; on one GPU
+the replicas share the card, one stream each.  The fleet is ELASTIC:
+``add_replica``/``drain_replica`` mutate the replica set under live
+traffic (drains are loss-free — queued work evacuates over the
+steal/adopt path, in-flight rounds retire, delivered results survive in
+an orphan store), and an optional ``sched.autoscale.AutoscalePolicy``
+drives both from observed queue pressure.
+
+The engines run on the CUDA device unless ``device="cpu"`` (or
+``devices=[torch.device("cpu"), ...]`` for the fleet) is passed.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import sys
 import time
 from collections import OrderedDict, deque
@@ -41,16 +60,18 @@ from collections import OrderedDict, deque
 import numpy as np
 import torch
 
-from repro_torch.sched import (AdmissionControl, AdmissionError,
+from repro_torch.sched import (AdmissionControl, AdmissionError, AutoPump,
                                DeficitRoundRobin, Flow, OverlayRequest,
-                               TokenBucket, WorkRequest, make_round_policy)
+                               TokenBucket, WorkRequest, make_round_policy,
+                               make_router)
 from repro_torch.sched.rounds import DEFAULT_TENANT
-from repro_torch.telemetry import InMemorySink
+from repro_torch.telemetry import InMemorySink, MultiSink, adopt_counters
 
 __all__ = [
-    "AdmissionControl", "AdmissionError", "DEFAULT_TENANT",
-    "DeficitRoundRobin", "OverlayRequest", "OverlayServer", "TokenBucket",
-    "WorkRequest", "main", "overlay_demo", "tenant_latency_summary",
+    "AdmissionControl", "AdmissionError", "AutoPump", "DEFAULT_TENANT",
+    "DeficitRoundRobin", "OverlayRequest", "OverlayServer",
+    "ShardedOverlayServer", "TokenBucket", "WorkRequest", "main",
+    "overlay_demo", "tenant_latency_summary",
 ]
 
 
@@ -108,6 +129,21 @@ def _stage_walls(telemetry) -> dict:
     """
     return {k: float(telemetry.counter(f"engine.{k}"))
             for k in STAGE_WALL_KEYS}
+
+
+def _on_own_stream(method):
+    """Run an ``OverlayServer`` method with the server's stream current.
+
+    Every method that causes a device operation (a bank write, an H2D
+    copy, a launch, the ``out_idx`` gather, the delivery event, a D2H
+    readback, a stream sync) enters the stream itself, so the caller's
+    thread and its current stream do not matter: the ``AutoPump`` thread,
+    the gateway's executor and the fleet all drive replicas safely."""
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with self.on_stream():
+            return method(self, *args, **kwargs)
+    return wrapped
 
 
 def _record_event(ys):
@@ -191,6 +227,16 @@ class OverlayServer:
         #: device this server's bank + rounds live on (None = the CUDA
         #: device; raises without one)
         self.device = device = resolve_device(device)
+        #: the CUDA stream every device operation of this server runs on
+        #: (None on the CPU).  A replica's "device" is this (card, stream)
+        #: pair: replicas of one fleet share the card, each on its own
+        #: stream.  Bank writes, H2D copies, launches and readbacks are
+        #: ordered on it whichever thread drives the server (see
+        #: ``on_stream``), and every tensor of the server is allocated
+        #: while it is current, so the caching allocator only ever hands
+        #: a freed block back to this stream.
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
         #: zero-copy round pipeline: the overlay assembles into pooled
         #: arena blocks (recycled at ``plan.release`` after delivery, so
         #: pipelined rounds N/N+1 each own their block) and donates the
@@ -201,8 +247,9 @@ class OverlayServer:
         #: recycles its own block after launch.
         self.overlay = Overlay(s_max=s_max, dtype=dtype, device=device,
                                arena=RoundArena(), donate=True)
-        self.bank = ContextBank(bank_capacity, s_max=s_max, dtype=dtype,
-                                max_outputs=max_outputs, device=device)
+        with self.on_stream():
+            self.bank = ContextBank(bank_capacity, s_max=s_max, dtype=dtype,
+                                    max_outputs=max_outputs, device=device)
         self.bank.attach_arena(self.overlay.arena)
         self.tile = tile
         if max_inflight < 1:
@@ -252,6 +299,15 @@ class OverlayServer:
         self._claimed: deque[int] = deque()
         self._next_ticket = 0
         self._pending_tiles = 0
+
+    def on_stream(self):
+        """Context manager making this server's stream current (a no-op on
+        the CPU).  The server's own entry points enter it; code outside
+        the server that writes its bank (a router's prefetch, a fleet's
+        move of queued work) enters it too."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
 
     # ------------------------------------------------- counters (read-through)
     @property
@@ -377,6 +433,24 @@ class OverlayServer:
         return self.round_policy.form_round(self._flows, self._rr,
                                             self.round_kernels)
 
+    def make_preemptible(self, bulk_tenants=(), bulk_prefix=None):
+        """Wrap this engine's round policy in a
+        :class:`~repro_torch.sched.preempt.PreemptibleTier` in place and
+        return the tier.  Idempotent: repeated calls merge their
+        ``bulk_tenants`` into the existing tier.  After this, flows of
+        the named tenants (or any tenant matching the bulk prefix) only
+        form rounds when every latency-tier flow is idle."""
+        from repro_torch.sched.preempt import BULK_PREFIX, PreemptibleTier
+        if isinstance(self.round_policy, PreemptibleTier):
+            self.round_policy.add_bulk(bulk_tenants)
+            return self.round_policy
+        self.round_policy = PreemptibleTier(
+            self.round_policy, bulk_tenants=bulk_tenants,
+            bulk_prefix=bulk_prefix if bulk_prefix is not None
+            else BULK_PREFIX)
+        return self.round_policy
+
+    # ------------------------------------------------------- round formation
     # ---------------------------------------------------------- work stealing
     def queued_group_keys(self) -> dict:
         """``{context key: kernel}`` over every QUEUED request — the units
@@ -439,6 +513,7 @@ class OverlayServer:
         self.telemetry.inc("engine.work_items", len(work_reqs))
         return work_outs
 
+    @_on_own_stream
     def _launch_round(self, reqs: list) -> None:
         """plan (pinned) -> assemble -> execute; delivery happens later.
 
@@ -500,6 +575,7 @@ class OverlayServer:
                                         t_launch=self.clock(),
                                         work_outs=work_outs))
 
+    @_on_own_stream
     def _retire_oldest(self) -> list:
         """Deliver the oldest in-flight round; returns its tickets."""
         inf = self._inflight.popleft()
@@ -644,8 +720,25 @@ class OverlayServer:
 
         Identical round formation and dispatch math to ``flush`` — only
         the overlap is missing, which makes this the bit-for-bit oracle
-        for the streaming path and the baseline it must beat.
+        for the streaming path and the baseline it must beat.  Outputs
+        are device tensors, complete on return.
         """
+        caller = (torch.cuda.current_stream(self.device)
+                  if self.stream is not None else None)
+        results = self._flush_sync()
+        if caller is not None and caller != self.stream:
+            # the one place a tensor of this server leaves its stream: the
+            # caller reads the outputs on its own stream, so their blocks
+            # must not return to this stream's pool before that stream
+            # has finished with them
+            for outs in results.values():
+                for y in outs:
+                    if isinstance(y, torch.Tensor) and y.is_cuda:
+                        y.record_stream(caller)
+        return results
+
+    @_on_own_stream
+    def _flush_sync(self) -> dict[int, list]:
         # rounds already launched by the pipelined API belong to this
         # drain too: deliver them first (releasing their pins) so no
         # ticket is dropped and no pin outlives its round
@@ -659,8 +752,8 @@ class OverlayServer:
             outs = (self.overlay.dispatch(
                 self.bank, [(r.kernel, r.xs) for r in kern_reqs],
                 tile=self.tile) if kern_reqs else [])
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            if self.stream is not None:
+                self.stream.synchronize()
             work_outs = self._run_work(work_reqs) if work_reqs else {}
             now = self.clock()
             round_no = int(self.telemetry.inc("engine.rounds")) - 1
@@ -738,6 +831,808 @@ class OverlayServer:
                   "tenant_latency": self.tenant_latency_percentiles()})
         return s
 
+
+# ==================================================== sharded serving layer
+class ShardedOverlayServer:
+    """Policy-routed serving over N per-replica context banks.
+
+    The paper keeps ONE time-multiplexed FU pipeline hot by making a
+    kernel switch an index; the single-bank ``OverlayServer`` scales that
+    to one device.  This layer scales it ACROSS devices the way many-core
+    overlays replicate the overlay fabric — except replicas are not
+    mirrors: each hosts its own ``ContextBank`` working set (affinity, not
+    replication), so aggregate residency grows with the fleet while each
+    replica's instruction store stays small.
+
+    * ROUTING + REBALANCING are delegated to a
+      :class:`~repro_torch.sched.routing.RouterPolicy`.  The default
+      :class:`~repro_torch.sched.routing.ResidencyRouter` keys every request by
+      context content, routes residency hits to the owning replica
+      (directory entries validated by residency generation), falls back
+      least-loaded on miss/stale, and migrates hot contexts with
+      hysteresis + cooldown.  ``steal=True`` swaps in the
+      :class:`~repro_torch.sched.routing.WorkStealingRouter`: at drain time an
+      idle replica pulls whole queued kernel-groups from the
+      most-backlogged replica (context prefetched on the thief first,
+      directory republished, in-flight rounds never touched).
+    * ADMISSION — token buckets live HERE, spanning replicas, so a
+      tenant's rate cannot be dodged by its kernels landing on different
+      replicas.  Per-replica round-policy fairness is unchanged
+      underneath.
+    * DELIVERY — tickets are global; ``flush``/``as_completed``/``result``
+      merge the per-replica pipelines.  The drain interleaves round
+      launches across replicas before blocking on any of them, so rounds
+      of different replicas may execute concurrently (CUDA launches are
+      asynchronous, and each replica has its own stream).
+      ``flush_sync`` drains replica-by-replica with the barrier loop — the
+      oracle path (no pipelining, no stealing).
+
+    Every replica is a full ``OverlayServer`` on one device of
+    ``launch.mesh.make_serving_mesh`` (devices wrap when the fleet is
+    larger than the machine — correctness never depends on real device
+    count).  On one GPU every replica shares the card, each on its own
+    CUDA stream; fleet code that writes a replica's bank (the router's
+    prefetch, ``move_group``) enters that replica's stream, and a
+    replica's own methods enter it for everything else.
+
+    * ELASTICITY — the replica set is mutable under live traffic:
+      ``add_replica()`` grows the fleet onto the least-shared physical
+      device, ``drain_replica(i)`` decommissions one replica loss-free
+      (evacuate queued work via steal/adopt, retire in-flight rounds,
+      orphan delivered-but-unclaimed results at the fleet level,
+      unpublish + generation-bump its directory entries, compact
+      indices).  Passing ``autoscaler=`` (see
+      :mod:`repro_torch.sched.autoscale`) automates both from queue pressure,
+      observed on every drain pass and autopump tick; ``flush_sync``
+      never scales — it stays the oracle.
+    """
+
+    def __init__(self, n_replicas: int = 2, bank_capacity: int = 8,
+                 tile: int = 128, s_max: int = 16,
+                 dtype=torch.float32, max_outputs: int = 8,
+                 max_inflight: int = 2, round_kernels: int | None = None,
+                 quantum_tiles: float | None = None,
+                 round_policy=None, router=None, steal: bool = False,
+                 admission: dict | None = None,
+                 default_admission: tuple | None = None,
+                 clock=time.monotonic, metrics_window: int = 65536,
+                 devices=None, migrate_factor: float = 4.0,
+                 migrate_min_tiles: int = 16, migrate_cooldown: int = 32,
+                 steal_min_tiles: int = 4, autoscaler=None,
+                 slo_s=None, telemetry=None):
+        from repro_torch.core.vm import resolve_device
+        from repro_torch.launch.mesh import cuda_devices, make_serving_mesh
+        #: fleet-wide delivery-latency SLO target (seconds, or a
+        #: ``{tenant: seconds}`` dict of SLO classes); replicas inherit
+        #: it, so per-tenant SLO attainment aggregates cleanly
+        self.slo_s = slo_s
+        #: the fleet's shared telemetry sink: every replica writes
+        #: through ``MultiSink(own, this)``, so fleet aggregates (rounds,
+        #: deliveries, evictions) accumulate here across replicas that
+        #: have since been drained — no hand-folded ``_retired_*`` state.
+        #: The router and autoscaler are re-bound to it too.
+        self.telemetry = (telemetry if telemetry is not None
+                          else InMemorySink(clock=clock))
+        #: candidate devices for replica placement — the pool elastic
+        #: scale-ups draw from (add_replica picks its least-shared member).
+        #: None = every CUDA device (raises without one).
+        self._device_pool = ([resolve_device(d) for d in devices]
+                             if devices is not None else cuda_devices())
+        self.devices = make_serving_mesh(n_replicas, self._device_pool)
+        self.tile = tile
+        # each replica builds its OWN round policy (policies may carry
+        # feedback state, e.g. DynamicTilePolicy's adapted budget): a
+        # string/None resolves per replica, a zero-arg factory is invoked
+        # per replica.  Passing one policy INSTANCE shares it across
+        # replicas — fine for stateless pacing, use a factory otherwise.
+        def _policy_for_replica():
+            return round_policy() if callable(round_policy) else round_policy
+        self._policy_factory = _policy_for_replica
+        #: constructor knobs every replica shares — kept so elastic
+        #: scale-ups (``add_replica``) build replicas identical to the
+        #: founding fleet.  Replicas do NOT get admission policies:
+        #: admission is global.
+        self._replica_kw = dict(
+            bank_capacity=bank_capacity, tile=tile,
+            s_max=s_max, dtype=dtype, max_outputs=max_outputs,
+            max_inflight=max_inflight, round_kernels=round_kernels,
+            quantum_tiles=quantum_tiles, clock=clock,
+            metrics_window=metrics_window, slo_s=slo_s)
+        self.replicas = [
+            OverlayServer(round_policy=_policy_for_replica(), device=d,
+                          telemetry=self._replica_sink(),
+                          **self._replica_kw)
+            for d in self.devices]
+        #: the routing policy (see repro_torch.sched.routing); ``steal=True``
+        #: without an explicit router builds a WorkStealingRouter
+        self.router = router if router is not None else make_router(
+            steal=steal, migrate_factor=migrate_factor,
+            migrate_min_tiles=migrate_min_tiles,
+            migrate_cooldown=migrate_cooldown,
+            steal_min_tiles=steal_min_tiles)
+        #: the fleet-sizing policy (see repro_torch.sched.autoscale); None =
+        #: static fleet.  Observed once per drain pass / pump tick.
+        self.autoscaler = autoscaler
+        # re-bind the router's and autoscaler's sinks onto the fleet's,
+        # carrying over anything they counted pre-binding, so one sink
+        # holds the whole serving story (guarded: the protocols don't
+        # require a telemetry attribute of custom policies)
+        for part in (self.router, self.autoscaler):
+            sink = getattr(part, "telemetry", None)
+            if sink is not None and sink is not self.telemetry:
+                adopt_counters(self.telemetry, sink)
+                part.telemetry = self.telemetry
+        self.admission = AdmissionControl(admission, default_admission,
+                                          clock=clock)
+        self.clock = clock
+        self.metrics_window = metrics_window
+        #: (bulk tenant set, bulk prefix) once make_preemptible was
+        #: called — future add_replica replicas get the tier installed
+        self._bulk_spec: tuple[set, str] | None = None
+        self._owner: dict[int, tuple[int, int]] = {}   # global -> (rep, loc)
+        self._global: list[dict[int, int]] = [
+            {} for _ in self.replicas]                 # rep: loc -> global
+        #: results whose replica was decommissioned before the client
+        #: claimed them: global ticket -> outputs (and the matching
+        #: telemetry records).  Every claim path checks here first.
+        self._orphaned: OrderedDict[int, list] = OrderedDict()
+        self._orphan_records: dict[int, dict] = {}
+        self._claimed: deque[int] = deque()
+        self._next_ticket = 0
+        self._rr = 0                                   # retire fan-in ptr
+        # elastic-fleet telemetry
+        self._born = [self.clock() for _ in self.replicas]
+        #: high-water fleet size since construction (benchmarks reset it
+        #: per measurement window to integrate capacity over time)
+        self.peak_replicas = len(self.replicas)
+
+    def _replica_sink(self):
+        """A fresh replica's sink: its own store fanned into the fleet's.
+
+        Reads (per-replica ``stats()``) come from the replica's own
+        store; every write also lands in the shared fleet sink, which is
+        how rounds/deliveries/evictions served by since-retired replicas
+        stay in the fleet aggregates after ``drain_replica``.
+        """
+        return MultiSink(InMemorySink(clock=self._replica_kw["clock"]),
+                         self.telemetry)
+
+    # ------------------------------------------------- counters (read-through)
+    @property
+    def n_submits(self) -> int:
+        return int(self.telemetry.counter("fleet.submits"))
+
+    @property
+    def n_scale_ups(self) -> int:
+        return int(self.telemetry.counter("fleet.scale_ups"))
+
+    @property
+    def n_scale_downs(self) -> int:
+        return int(self.telemetry.counter("fleet.scale_downs"))
+
+    @property
+    def n_evacuated_requests(self) -> int:
+        return int(self.telemetry.counter("fleet.evacuated_requests"))
+
+    @property
+    def n_evacuated_tiles(self) -> int:
+        return int(self.telemetry.counter("fleet.evacuated_tiles"))
+
+    @property
+    def n_replicas_retired(self) -> int:
+        return int(self.telemetry.counter("fleet.replicas_retired"))
+
+    @property
+    def retired_lifetime_s(self) -> float:
+        return float(self.telemetry.counter("fleet.retired_lifetime_s"))
+
+    @property
+    def n_replicas(self) -> int:
+        """Live replica count (mutates under elastic autoscaling)."""
+        return len(self.replicas)
+
+    @property
+    def banks(self):
+        """Per-replica ContextBanks, replica order."""
+        return [rep.bank for rep in self.replicas]
+
+    # --------------------------------------------- router-facing delegation
+    @property
+    def directory(self):
+        """The router's shared BankDirectory (residency cache)."""
+        return self.router.directory
+
+    @property
+    def n_route_hits(self) -> int:
+        return self.router.n_hits
+
+    @property
+    def n_route_misses(self) -> int:
+        return self.router.n_misses
+
+    @property
+    def n_migrations(self) -> int:
+        return self.router.n_migrations
+
+    @property
+    def n_steals(self) -> int:
+        return getattr(self.router, "n_steals", 0)
+
+    @property
+    def residency_hit_rate(self) -> float:
+        """Routed-to-resident-replica fraction (stale hits count as
+        misses); NaN before any routing decision."""
+        return self.router.hit_rate
+
+    def adopt_stolen(self, victim: int, thief: int, stolen) -> None:
+        """Re-home stolen queued requests' global tickets — the router's
+        bookkeeping hook after ``replicas[victim].steal_queued``.  Each
+        request gets a fresh local ticket on the thief; its global ticket
+        (what the client holds) follows it."""
+        for req, rec in stolen:
+            g = self._global[victim].pop(req.ticket)
+            loc = self.replicas[thief].adopt_queued(req, rec)
+            self._owner[g] = (thief, loc)
+            self._global[thief][loc] = g
+
+    def move_group(self, victim: int, thief: int, key: tuple,
+                   kernel) -> list:
+        """Move one queued kernel-group from ``victim`` to ``thief``;
+        returns the moved requests (possibly empty).
+
+        THE single implementation of the cross-replica move sequence —
+        ``WorkStealingRouter.rebalance`` and ``drain_replica`` both call
+        it — so the ordering invariant lives in one place: the thief's
+        bank prefetches the context FIRST (a ``BankError`` propagates
+        with nothing moved — the caller picks another thief or skips),
+        the directory is republished so follow-up traffic chases the
+        work, then the queued requests leave the victim and are adopted
+        under fresh thief tickets with their global tickets re-homed.
+        In-flight rounds and pins are never touched.
+
+        Work-request groups (``kernel is None`` — host-side work has no
+        context) skip the prefetch/republish steps: they are moved by
+        queue surgery alone, which is how ``drain_replica`` evacuates a
+        training tenant's queued micro-rounds loss-free.
+        """
+        thief_rep = self.replicas[thief]
+        if kernel is not None:
+            with thief_rep.on_stream():     # a write of the thief's bank
+                thief_rep.bank.prefetch([kernel])
+            self.directory.republish_current(kernel, thief, thief_rep.bank)
+        stolen = self.replicas[victim].steal_queued(key)
+        self.adopt_stolen(victim, thief, stolen)
+        return [req for req, _ in stolen]
+
+    # ------------------------------------------------------- elastic fleet
+    def add_replica(self, device=None) -> int:
+        """Grow the fleet by one replica; returns its index.
+
+        The new replica is a full ``OverlayServer`` built with the
+        founding fleet's knobs (its own round policy instance, its own
+        device-committed ``ContextBank``), placed on ``device`` or — the
+        autoscaling default — on the physical device currently hosting
+        the FEWEST replicas (``launch.mesh.least_shared_device``), so
+        grown capacity is real parallelism before it is time-slicing.
+        The router needs no registration: an empty bank simply never
+        validates a directory entry, and the least-loaded fallback (plus
+        a stealing router's ``rebalance``) starts feeding the newcomer
+        immediately.
+        """
+        from repro_torch.core.vm import resolve_device
+        from repro_torch.launch.mesh import least_shared_device
+        device = (least_shared_device(self._device_pool, self.devices)
+                  if device is None else resolve_device(device))
+        rep = OverlayServer(round_policy=self._policy_factory(),
+                            device=device, telemetry=self._replica_sink(),
+                            **self._replica_kw)
+        if self._bulk_spec is not None:
+            rep.make_preemptible(self._bulk_spec[0],
+                                 bulk_prefix=self._bulk_spec[1])
+        self.replicas.append(rep)
+        self.devices.append(device)
+        self._global.append({})
+        self._born.append(self.clock())
+        self.peak_replicas = max(self.peak_replicas, len(self.replicas))
+        self.telemetry.inc("fleet.scale_ups")
+        self.telemetry.event("scale_up", replica=len(self.replicas) - 1,
+                             device=str(device), fleet=len(self.replicas))
+        return len(self.replicas) - 1
+
+    def drain_replica(self, i: int) -> dict:
+        """Loss-free decommission of replica ``i``; returns telemetry.
+
+        The drain lifecycle:
+
+        1. EVACUATE queued work: every queued kernel-group moves to the
+           least-loaded surviving replica over the existing steal/adopt
+           path — context prefetched on the target FIRST, directory
+           republished, global tickets re-homed (``adopt_stolen``), so
+           clients notice nothing.  A momentarily all-pinned target
+           retires one of its in-flight rounds and the evacuation
+           retries.
+        2. RETIRE in-flight rounds: delivered through the normal path,
+           releasing their pins — pins are never broken, launched rounds
+           always complete on the device that planned them.
+        3. ORPHAN delivered-but-unclaimed results (and the replica's
+           ticket telemetry) into a fleet-level store; every claim path
+           (``result``/``try_result``/``as_completed``/``flush``) checks
+           it first, so tickets survive their replica.
+        4. UNPUBLISH the replica's ``BankDirectory`` entries and retire
+           its bank (generation bump): any stale residency snapshot now
+           fails validation and falls back to the miss path instead of
+           resolving to a decommissioned replica.
+        5. DECOMMISSION: the replica leaves the fleet and indices
+           compact (directory + ticket maps renumbered).
+
+        Raises ``ValueError`` for the last replica (a fleet of zero can
+        serve nothing; ``AutoscalePolicy.min_replicas`` should prevent
+        this upstream) and ``IndexError`` for an unknown index.
+        """
+        from repro_torch.core.bank import BankError
+        if not 0 <= i < len(self.replicas):
+            raise IndexError(
+                f"drain_replica: no replica {i} (fleet has "
+                f"{len(self.replicas)})")
+        if len(self.replicas) <= 1:
+            raise ValueError("drain_replica: cannot drain the last replica")
+        rep = self.replicas[i]
+        evac_requests = evac_tiles = 0
+        while rep.queued:
+            # one scan per pass: queued_group_keys walks every queued
+            # request, so iterate the whole group map rather than
+            # rebuilding it per group (the outer while normally runs
+            # once — it only re-enters if a move legitimately left work)
+            for key, kernel in list(rep.queued_group_keys().items()):
+                while True:
+                    order = sorted(
+                        (j for j in range(len(self.replicas)) if j != i),
+                        key=lambda j: self.replicas[j].pending_tiles)
+                    moved = None
+                    for j in order:
+                        try:
+                            moved = self.move_group(i, j, key, kernel)
+                            break
+                        except BankError:
+                            continue
+                    if moved is not None:
+                        break
+                    # every surviving bank is momentarily all pinned:
+                    # retire the least-loaded survivor's oldest round
+                    # (released pins free slots) and retry — pins only
+                    # exist while rounds are in flight, so this always
+                    # makes progress
+                    survivor = self.replicas[order[0]]
+                    if not survivor._inflight:
+                        raise BankError(
+                            "drain_replica: no surviving replica can "
+                            "host the evacuated context")
+                    survivor._retire_oldest()   # on the survivor's stream
+                evac_requests += len(moved)
+                evac_tiles += sum(r.cost for r in moved)
+        while rep._inflight:
+            rep._retire_oldest()        # on the drained replica's stream
+        orphaned_now = len(rep._done)
+        for loc, outs in rep._done.items():
+            self._orphaned[self._global[i][loc]] = outs
+        rep._done.clear()
+        for loc, record in rep._records.items():
+            g = self._global[i].get(loc)
+            if g is not None:      # claimed + pruned records have no global
+                self._orphan_records[g] = record
+        for g in self._global[i].values():
+            self._owner.pop(g, None)
+        self.directory.remove_replica(i)
+        rep.bank.retire()
+        # the replica's rounds/deliveries already live in the shared
+        # fleet sink (every replica writes through MultiSink(own, fleet))
+        # so fleet stats() keeps them for free; bank evictions are the
+        # one per-replica counter that does NOT flow through the engine
+        # sink — fold them here before the bank goes away
+        self.telemetry.inc("fleet.retired_evictions", rep.bank.n_evictions)
+        self.replicas.pop(i)
+        self.devices.pop(i)
+        self._global.pop(i)
+        lifetime = self.clock() - self._born.pop(i)
+        self.telemetry.inc("fleet.scale_downs")
+        self.telemetry.inc("fleet.replicas_retired")
+        self.telemetry.inc("fleet.retired_lifetime_s", lifetime)
+        self.telemetry.inc("fleet.evacuated_requests", evac_requests)
+        self.telemetry.inc("fleet.evacuated_tiles", evac_tiles)
+        self.telemetry.inc("fleet.orphaned_results", orphaned_now)
+        self.telemetry.event("scale_down", replica=i, lifetime_s=lifetime,
+                             evacuated_requests=evac_requests,
+                             evacuated_tiles=evac_tiles,
+                             orphaned_results=orphaned_now,
+                             fleet=len(self.replicas))
+        self._owner = {t: ((r - 1, loc) if r > i else (r, loc))
+                       for t, (r, loc) in self._owner.items()}
+        return {"replica": i, "evacuated_requests": evac_requests,
+                "evacuated_tiles": evac_tiles,
+                "orphaned_results": orphaned_now,
+                "lifetime_s": lifetime}
+
+    def autoscale_once(self) -> int:
+        """Observe the autoscaler and apply its decisions; returns how
+        many actions were applied.  Called from every drain pass and the
+        pump tick; a no-op without an autoscaler.  The shell re-checks
+        its own invariants (never below one replica, index still live),
+        so a policy bug degrades to a skipped action."""
+        if self.autoscaler is None:
+            return 0
+        # "down" indices refer to the fleet AS OBSERVED: applying an
+        # earlier action compacts indices, so resolve each index to its
+        # replica object first and re-look it up at apply time — a later
+        # action from the same snapshot can never target the wrong
+        # replica, and one already drained degrades to a skipped action
+        snapshot = list(self.replicas)
+        # the shell-side runaway guard: honor the policy's own declared
+        # ceiling (PressureAutoscaler always carries one), so a buggy
+        # observe() that returns "up" forever degrades to skipped
+        # actions instead of growing the fleet to OOM under a pump tick
+        limit = getattr(self.autoscaler, "max_replicas", None)
+        applied = 0
+        for kind, idx in self.autoscaler.observe(self):
+            if kind == "up":
+                if limit is not None and len(self.replicas) >= limit:
+                    continue
+                self.add_replica()
+                applied += 1
+            elif (kind == "down" and idx is not None
+                    and 0 <= idx < len(snapshot)):
+                try:
+                    live = self.replicas.index(snapshot[idx])
+                except ValueError:
+                    continue
+                if len(self.replicas) > 1:
+                    self.drain_replica(live)
+                    applied += 1
+        return applied
+
+    # ----------------------------------------------------------------- queue
+    def submit(self, kernel, xs, tenant: str = DEFAULT_TENANT) -> int:
+        """Admit globally, route via the router policy, enqueue on one
+        replica; returns a global ticket."""
+        xs = list(xs)
+        cost = max(1, -(-int(np.shape(xs[0])[0]) // self.tile))
+        self.admission.admit(tenant, cost)
+        rep = self.router.route(kernel, self)
+        loc = self.replicas[rep].submit(kernel, xs, tenant=tenant)
+        t = self._next_ticket
+        self._next_ticket += 1
+        self._owner[t] = (rep, loc)
+        self._global[rep][loc] = t
+        self.telemetry.inc("fleet.submits")
+        return t
+
+    def submit_work(self, fn, tenant: str = DEFAULT_TENANT, *,
+                    cost: int = 1, label: str = "work",
+                    key: tuple | None = None) -> int:
+        """Admit globally, enqueue host-side work on the least-loaded
+        replica (work has no context residency to chase); returns a
+        global ticket.  See ``OverlayServer.submit_work``."""
+        cost = max(1, int(cost))
+        self.admission.admit(tenant, cost)
+        rep = min(range(len(self.replicas)),
+                  key=lambda i: self.replicas[i].pending_tiles)
+        loc = self.replicas[rep].submit_work(fn, tenant=tenant, cost=cost,
+                                             label=label, key=key)
+        t = self._next_ticket
+        self._next_ticket += 1
+        self._owner[t] = (rep, loc)
+        self._global[rep][loc] = t
+        self.telemetry.inc("fleet.submits")
+        return t
+
+    def queued_by_tenant(self) -> dict[str, int]:
+        """Fleet-wide queued-only tiles per tenant (see
+        ``OverlayServer.queued_by_tenant``)."""
+        out: dict[str, int] = {}
+        for rep in self.replicas:
+            for tenant, tiles in rep.queued_by_tenant().items():
+                out[tenant] = out.get(tenant, 0) + tiles
+        return out
+
+    def make_preemptible(self, bulk_tenants=(), bulk_prefix=None):
+        """Install the preemptible bulk tier on EVERY replica's round
+        policy (idempotent; replicas added later inherit it).  Returns
+        the per-replica tiers, replica order."""
+        from repro_torch.sched.preempt import BULK_PREFIX
+        prefix = bulk_prefix if bulk_prefix is not None else BULK_PREFIX
+        if self._bulk_spec is None:
+            self._bulk_spec = (set(bulk_tenants), prefix)
+        else:
+            self._bulk_spec[0].update(bulk_tenants)
+        return [rep.make_preemptible(self._bulk_spec[0],
+                                     bulk_prefix=self._bulk_spec[1])
+                for rep in self.replicas]
+
+    @property
+    def pending(self) -> int:
+        return sum(rep.pending for rep in self.replicas)
+
+    @property
+    def pending_tiles(self) -> int:
+        """Fleet-wide undelivered work in dispatch tiles — the gateway's
+        edge-backpressure signal (the depth its ``max_fleet_tiles`` bound
+        is enforced against)."""
+        return sum(rep.pending_tiles for rep in list(self.replicas))
+
+    # -------------------------------------------------------------- retrieve
+    def _to_global(self, rep: int, local_results: dict) -> dict:
+        return {self._global[rep][loc]: ys
+                for loc, ys in local_results.items()}
+
+    def _forget(self, ticket: int) -> None:
+        """Drop one claimed ticket's bookkeeping: its routing maps, or —
+        for a ticket whose replica was decommissioned — its orphan
+        telemetry.  The single forget path shared by the metrics-window
+        prune and ``reset_metrics``."""
+        rep_loc = self._owner.pop(ticket, None)
+        if rep_loc is not None:
+            self._global[rep_loc[0]].pop(rep_loc[1], None)
+        else:
+            self._orphan_records.pop(ticket, None)
+
+    def _note_claimed(self, tickets) -> None:
+        self.telemetry.inc("fleet.claims", len(tickets))
+        self._claimed.extend(tickets)
+        while len(self._claimed) > self.metrics_window:
+            self._forget(self._claimed.popleft())
+
+    def _claim_orphan(self, ticket: int):
+        """Claim/inspect a ticket whose replica was decommissioned:
+        returns its outputs, raises KeyError if already claimed, or
+        returns None when the ticket is not an orphan at all."""
+        if ticket in self._orphaned:
+            self.telemetry.inc("fleet.orphan_claims")
+            self._note_claimed([ticket])
+            return self._orphaned.pop(ticket)
+        if ticket in self._orphan_records:
+            # record survives, result gone: it was claimed already
+            raise KeyError(f"ticket {ticket} already claimed")
+        return None
+
+    def try_result(self, ticket: int):
+        """Non-blocking claim across the fleet (see
+        ``OverlayServer.try_result``)."""
+        if ticket in self._orphaned or ticket in self._orphan_records:
+            return self._claim_orphan(ticket)
+        if ticket not in self._owner:
+            raise KeyError(f"unknown ticket {ticket}")
+        rep, loc = self._owner[ticket]
+        out = self.replicas[rep].try_result(loc)
+        if out is not None:
+            self._note_claimed([ticket])
+        return out
+
+    def result(self, ticket: int):
+        """Block until the ticket's outputs are ready (drives only the
+        owning replica's pipeline); one claim per ticket.  A ticket whose
+        replica was drained is served from the fleet's orphan store (the
+        drain delivered it) or from its adoptive replica (the drain
+        evacuated it) — the client never sees the difference."""
+        if ticket in self._orphaned or ticket in self._orphan_records:
+            return self._claim_orphan(ticket)
+        if ticket not in self._owner:
+            raise KeyError(f"unknown ticket {ticket}")
+        rep, loc = self._owner[ticket]
+        out = self.replicas[rep].result(loc)
+        self._note_claimed([ticket])
+        return out
+
+    def as_completed(self):
+        """Yield ``(ticket, outputs)`` in completion order across ALL
+        replicas; keeps every replica's pipeline full while iterating
+        (observing the autoscaler and rebalancing queued work first) and
+        retires rounds fan-in round-robin so no replica's results are
+        held back behind another's backlog.  Results orphaned by a
+        replica drain are yielded like any other completion."""
+        while True:
+            yielded = False
+            while self._orphaned:
+                t, outs = self._orphaned.popitem(last=False)
+                self.telemetry.inc("fleet.orphan_claims")
+                self._note_claimed([t])
+                yielded = True
+                yield t, outs
+            for rep_id, rep in enumerate(self.replicas):
+                while rep._done:
+                    loc, outs = rep._done.popitem(last=False)
+                    rep._note_claimed([loc])
+                    t = self._global[rep_id][loc]
+                    self._note_claimed([t])
+                    yielded = True
+                    yield t, outs
+            if yielded:
+                continue
+            self.autoscale_once()
+            self.router.rebalance(self)
+            for rep in self.replicas:
+                rep._fill_pipeline()
+            live = [rep for rep in self.replicas if rep._inflight]
+            if not live:
+                if self._orphaned:      # a scale-down orphaned results
+                    continue
+                return
+            live[self._rr % len(live)]._retire_oldest()
+            self._rr += 1
+
+    def pump_once(self) -> bool:
+        """One unit of fleet drain work for ``sched.pump.AutoPump``:
+        observe the autoscaler (this tick is how BACKGROUND serving
+        scales — including idle ticks, which is where scale-downs come
+        from), rebalance queued work (stealing routers), top up every
+        replica's pipeline, deliver one round (fan-in round-robin).
+        Returns True when any round was delivered or the fleet changed
+        size, so the pump keeps ticking through a scaling burst."""
+        scaled = self.autoscale_once()
+        self.router.rebalance(self)
+        for rep in self.replicas:
+            rep._fill_pipeline()
+        live = [rep for rep in self.replicas if rep._inflight]
+        if not live:
+            return scaled > 0
+        live[self._rr % len(live)]._retire_oldest()
+        self._rr += 1
+        return True
+
+    def flush(self) -> dict[int, list]:
+        """Serve everything queued on every replica; {ticket: outputs}.
+
+        Launches rounds on ALL replicas before blocking on any one of
+        them, so the per-device rounds execute concurrently; within each
+        replica the usual round pipelining applies.  A stealing router
+        rebalances queued work each pass, so an idle replica picks up a
+        backlogged replica's queue instead of going dark.  The
+        autoscaler is observed once per pass, so the replica set may
+        GROW or SHRINK mid-flush: the pass re-reads the fleet after
+        every mutation, a drained replica's queued work re-homes through
+        the same steal/adopt path, and its delivered results join the
+        returned dict via the orphan store — no ticket is lost to a
+        resize.
+        """
+        while True:
+            self.autoscale_once()
+            self.router.rebalance(self)
+            for rep in self.replicas:
+                rep._fill_pipeline()
+            live = [rep for rep in self.replicas if rep._inflight]
+            if not live:
+                break
+            for rep in live:
+                rep._retire_oldest()
+        results: dict[int, list] = {}
+        for rep_id, rep in enumerate(self.replicas):
+            results.update(self._to_global(rep_id, rep.flush()))
+        self.telemetry.inc("fleet.orphan_claims", len(self._orphaned))
+        results.update(self._orphaned)
+        self._orphaned.clear()
+        self._note_claimed(results)
+        return results
+
+    def flush_sync(self) -> dict[int, list]:
+        """Barrier drain, replica by replica — the sharded oracle path
+        (no cross-replica overlap, no intra-replica pipelining, no
+        stealing, no autoscaling).  Results already orphaned by an
+        earlier drain are still returned — the oracle claims everything
+        undelivered, it just never mutates the fleet itself."""
+        results: dict[int, list] = {}
+        for rep_id, rep in enumerate(self.replicas):
+            results.update(self._to_global(rep_id, rep.flush_sync()))
+        self.telemetry.inc("fleet.orphan_claims", len(self._orphaned))
+        results.update(self._orphaned)
+        self._orphaned.clear()
+        self._note_claimed(results)
+        return results
+
+    # --------------------------------------------------------------- metrics
+    def record(self, ticket: int) -> dict:
+        """Telemetry for one global ticket (adds the serving replica;
+        ``replica=None`` for tickets whose replica was decommissioned)."""
+        rep_loc = self._owner.get(ticket)
+        if rep_loc is None:
+            rec = dict(self._orphan_records[ticket])
+            rec["replica"] = None
+            return rec
+        rep, loc = rep_loc
+        rec = self.replicas[rep].record(loc)
+        rec["replica"] = rep
+        return rec
+
+    def latencies(self) -> dict[int, float]:
+        out: dict[int, float] = {}
+        for rep_id, rep in enumerate(self.replicas):
+            for loc, lat in rep.latencies().items():
+                t = self._global[rep_id].get(loc)
+                if t is not None:
+                    out[t] = lat
+        for t, rec in self._orphan_records.items():
+            if rec["t_done"] is not None:
+                out[t] = rec["t_done"] - rec["t_submit"]
+        return out
+
+    def latency_percentiles(self, qs=LATENCY_QS) -> dict[str, float]:
+        lats = list(self.latencies().values())
+        if not lats:
+            return {f"p{q}": float("nan") for q in qs}
+        return {f"p{q}": float(np.percentile(lats, q)) for q in qs}
+
+    def tenant_latencies(self):
+        """Yield ``(tenant, latency_seconds)`` per delivered ticket,
+        fleet-wide: every live replica's records plus the orphan records
+        of tickets whose replica was decommissioned — a drained replica's
+        served traffic still counts against its tenants' SLOs."""
+        for rep in self.replicas:
+            yield from rep.tenant_latencies()
+        for rec in self._orphan_records.values():
+            if rec["t_done"] is not None:
+                yield rec["tenant"], rec["t_done"] - rec["t_submit"]
+
+    def tenant_latency_percentiles(self, qs=LATENCY_QS) -> dict:
+        """Fleet-wide per-tenant p50/p95/p99 + SLO attainment (one source
+        of truth shared by the gateway's shed decisions and the benchmark
+        tables — see :func:`tenant_latency_summary`)."""
+        return tenant_latency_summary(self.tenant_latencies(), qs=qs,
+                                      slo_s=self.slo_s)
+
+    def reset_metrics(self) -> None:
+        """Drop delivered-ticket telemetry AND routing counters (e.g.
+        after a warmup drain) so hit rates reflect steady state."""
+        for rep in self.replicas:
+            rep.reset_metrics()
+        # release the claimed tickets' routing maps too — the replicas
+        # just dropped those tickets' records, and leaving entries in
+        # _owner/_global would leak them for the server's lifetime
+        # (delivered-but-unclaimed tickets are not in _claimed and keep
+        # their routing)
+        while self._claimed:
+            self._forget(self._claimed.popleft())
+        self.router.reset_metrics()
+        # scaling counters are per-study telemetry like hit rates; the
+        # autoscaler's own decision counters reset with them (its control
+        # state — streaks, cooldown — is not a metric and survives)
+        self.telemetry.reset(names=(
+            "fleet.scale_ups", "fleet.scale_downs",
+            "fleet.evacuated_requests", "fleet.evacuated_tiles"))
+        if self.autoscaler is not None:
+            self.autoscaler.reset_metrics()
+
+    def stats(self) -> dict:
+        per = [rep.stats() for rep in self.replicas]
+        # rounds/requests aggregate from the SHARED sink, not the live
+        # replicas: every replica writes through MultiSink(own, fleet),
+        # so work served by since-drained replicas is already in there
+        s = {"replicas": self.n_replicas,
+             "submits": self.n_submits,
+             "pending": self.pending,
+             "queue_depth": [p["queued"] for p in per],
+             "queued_tiles": [p["queued_tiles"] for p in per],
+             "per_replica": per,
+             "rounds": int(self.telemetry.counter("engine.rounds")),
+             "requests": int(self.telemetry.counter("engine.delivered")),
+             "evictions": (sum(p["evictions"] for p in per)
+                           + int(self.telemetry.counter(
+                               "fleet.retired_evictions"))),
+             "scale_ups": self.n_scale_ups,
+             "scale_downs": self.n_scale_downs,
+             "evacuated_requests": self.n_evacuated_requests,
+             "evacuated_tiles": self.n_evacuated_tiles,
+             "replicas_retired": self.n_replicas_retired,
+             "retired_lifetime_s": self.retired_lifetime_s,
+             "peak_replicas": self.peak_replicas,
+             "orphaned_results": len(self._orphaned),
+             "orphan_claims": int(
+                 self.telemetry.counter("fleet.orphan_claims")),
+             "claims": int(self.telemetry.counter("fleet.claims")),
+             # replicas write through MultiSink(own, fleet), so these
+             # walls aggregate the whole fleet incl. drained replicas
+             "stage_walls": _stage_walls(self.telemetry),
+             "tenant_latency": self.tenant_latency_percentiles()}
+        s.update(self.router.stats())
+        if self.autoscaler is not None:
+            s.update(self.autoscaler.stats())
+        return s
 
 
 def overlay_demo(argv_ns) -> int:

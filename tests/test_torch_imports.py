@@ -115,3 +115,44 @@ def test_chip_smoke_fails_without_a_gpu():
                           cwd=str(ROOT))
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+#: the serving fleet and its network edge
+FLEET_AND_EDGE = (
+    "repro_torch.sched", "repro_torch.sched.preempt",
+    "repro_torch.sched.routing", "repro_torch.sched.autoscale",
+    "repro_torch.sched.pump", "repro_torch.launch.mesh",
+    "repro_torch.launch.serve", "repro_torch.launch.transport",
+    "repro_torch.launch.gateway", "repro_torch.launch.socket_gateway")
+
+
+@pytest.mark.parametrize("module", FLEET_AND_EDGE)
+def test_fleet_and_edge_modules_stand_alone(module):
+    """Each module of the fleet and the edge is part of the port and
+    imports nothing of the reference (checked on its source, above, and
+    here by name so that none can go missing)."""
+    assert module in MODULES
+    path = ROOT / "src" / Path(*module.split("."))
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def test_fleet_needs_a_card_in_a_fresh_interpreter():
+    """The ten modules import with no GPU and no compiler, pull in
+    neither ``jax`` nor ``repro``, and ``ShardedOverlayServer`` with
+    ``devices=None`` raises where no CUDA device is visible."""
+    code = (
+        "import sys, importlib\n"
+        f"for m in {FLEET_AND_EDGE!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "from repro_torch.launch.serve import ShardedOverlayServer\n"
+        "try:\n"
+        "    ShardedOverlayServer(n_replicas=2, devices=None)\n"
+        "except RuntimeError as e:\n"
+        "    assert 'no CUDA device' in str(e), e\n"
+        "    print('raised')\n")
+    proc = _run(code, PATH="", CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "raised"
