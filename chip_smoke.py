@@ -67,13 +67,37 @@ Phases, each printing one JSON line:
                oracles above; requests/s and the client's delivery latency.
                Every wait has its own timeout.  Counters set to 0 before,
                read after.
-7. ``kernels`` one line with every kernel's launches (summed over the
-               serve, fleet and edge paths, and by path), error, time, plain
-               time and bound; the card's line from nvidia-smi; and the
-               verdict as the last line.
+7. ``lm``      the LM serving path (``repro_torch.models``, ``configs``,
+               ``runtime.steps``, ``launch.serve.lm_generate``, the function
+               behind ``serve --arch``).  Full width, through
+               ``lm_generate`` (B = 4, prompt 32, 16 tokens, seeded weights
+               made on the card): deepseek-7b at full depth, mamba2-2.7b at
+               full depth, phi3.5-moe-42b-a6.6b at its published widths cut
+               to 2 of its 32 layers.  Each run twice (the second timed;
+               MoE: the two bit for bit), then its bfloat16 logits held
+               against the port's float32 forward (``COMPUTE_DTYPE``
+               float32, TF32 off) at the same positions; prefill and decode
+               times and rates beside the decode step's bound, and
+               ``torch.cuda.max_memory_allocated``.  Then all ten smoke
+               configs on the card against the port's CPU path on the same
+               ``numpy_params`` weights: forward, prefill (last logits and
+               caches), one decode step on the CPU's caches, in float32
+               mode (1e-4 relative) and bfloat16 mode (the reference's
+               criterion), and a TF32 control.  The path launches none of
+               the TMFU kernels: counters set to 0 before the full-width
+               runs, read after.
+8. ``context_switch``  ``Overlay.time_context_switch`` for the nine
+               benchmark kernels on the card (median of 20, µs) beside
+               ``time_recompile`` (a fresh ``torch.compile``: dynamo,
+               inductor, a Triton kernel) for two of them: the paper's
+               context switch against rebuilding the spatial design.
+9. ``kernels`` one line with every kernel's launches (summed over the
+               serve, fleet, edge and lm paths, and by path), error, time,
+               plain time and bound; the card's line from nvidia-smi; and
+               the verdict as the last line.
 
 ``--profile`` adds one warm ``flush`` under ``torch.profiler`` (device time
-by kernel name, the device's idle share of the drain) before step 7.
+by kernel name, the device's idle share of the drain) before step 9.
 """
 
 import json
@@ -1256,11 +1280,358 @@ async def _edge_stats(server):
             "pump_rounds": server.gateway.pump.n_pump_rounds}
 
 
+# ------------------------------------------------------------------- LM path
+#: the LM phase's runs: the reference CLI's defaults (batch, prompt, tokens)
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 16
+#: full-width runs: (arch, layers kept; None = full depth)
+LM_FULL = (("deepseek-7b", None), ("mamba2-2.7b", None),
+           ("phi3.5-moe-42b-a6.6b", 2))
+#: card against the port's CPU path, float32 mode: max|a - b| / max|b|.
+#: Both sides are float32 (TF32 off); summation order and exp / sin / cos
+#: differ, which the CPU tests measure below 3e-6 against JAX.  TF32
+#: (inputs rounded to 2^-11) or one bfloat16 step (2^-8) exceeds it; the
+#: ``tf32_control`` entry shows what TF32 gives.
+SMOKE_F32_REL = 1e-4
+#: full width, bfloat16 prefill + decode through the cache against the
+#: float32 forward at the same positions, per position ||a - b|| / ||b||
+#: over the vocabulary.  The bfloat16 forward over the same tokens is the
+#: precision's own distance from float32 (0.6 % for phi3.5-moe's 2 layers,
+#: 2.0 % for deepseek-7b's 30, 6.1 % for mamba2-2.7b's 64: NVIDIA H100 80GB
+#: HBM3, 700.00 W), so the decode's median distance may exceed the bf16
+#: forward's by at most a quarter (``DECODE_VS_FORWARD``): a decode path
+#: that rounds more than the configured bfloat16, or reads a wrong cache
+#: slot, is farther.  Every position must also be within 10 % and all of
+#: them together correlate above 0.99; a MoE token whose top-2 experts
+#: are a near-tie may route differently in the two precisions, so there
+#: 90 % of positions must meet the 10 %.
+FULL_REL_L2 = 0.1
+DECODE_VS_FORWARD = 1.25
+
+
+def rel_max(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def bf16_criterion(got, want, what) -> dict:
+    """The reference's own bfloat16 criterion (``tests/test_arch_smoke.py``):
+    correlation > 0.99, top-1 agreement >= 0.95, every top-1 mismatch a
+    near-tie (top-2 gap under 0.1 of the logits' std) on both sides."""
+    a = got.float().cpu().reshape(-1, got.shape[-1])
+    b = want.float().cpu().reshape(-1, got.shape[-1])
+    cc = float(np.corrcoef(a.numpy().ravel(), b.numpy().ravel())[0, 1])
+    am, bm = a.argmax(-1), b.argmax(-1)
+    agree = float((am == bm).float().mean())
+    tie = 0.1 * float(b.std())
+    for i in torch.nonzero(am != bm).flatten().tolist():
+        gap = max(abs(float(a[i, am[i]] - a[i, bm[i]])),
+                  abs(float(b[i, am[i]] - b[i, bm[i]])))
+        assert gap < tie, f"{what}: row {i} flips top-1 by {gap} > {tie}"
+    assert cc > 0.99 and agree >= 0.95, f"{what}: cc {cc}, top-1 {agree}"
+    return {"cc": cc, "top1": agree}
+
+
+class compute_dtype:
+    """``COMPUTE_DTYPE`` of the port's models set to ``dtype`` inside the
+    block (both modules that read it), and the old value back after."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+    def __enter__(self):
+        from repro_torch.models import layers, model
+        self.mods = (layers, model)
+        self.old = [m.COMPUTE_DTYPE for m in self.mods]
+        for m in self.mods:
+            m.COMPUTE_DTYPE = self.dtype
+
+    def __exit__(self, *exc):
+        for m, old in zip(self.mods, self.old):
+            m.COMPUTE_DTYPE = old
+
+
+def smoke_inputs(cfg, dtype, seed=1, B=2, S=17):
+    rng = np.random.RandomState(seed)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab, (B, S)))
+    kw = {}
+    if cfg.vision_tokens:
+        kw["extra_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.vision_tokens, cfg.d_model)).astype(np.float32)).to(dtype)
+    if cfg.encoder is not None:
+        kw["frame_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, S - 1, cfg.d_model)).astype(np.float32)).to(dtype)
+    return tokens, kw
+
+
+def smoke_on(cfg, tree, device, dtype):
+    """forward, prefill and one decode step of a smoke config on ``device``
+    (the decode on the CPU's prefill caches, passed as ``caches``)."""
+    from repro_torch.models import (decode_step, forward, params_from_numpy,
+                                    prefill)
+    params = params_from_numpy(cfg, tree, device)
+    tokens, kw = smoke_inputs(cfg, dtype)
+    kw = {k: v.to(device) for k, v in kw.items()}
+    tokens = tokens.to(device)
+    P = tokens.shape[1] - 1
+    logits, aux, _ = forward(cfg, params, tokens, **kw)
+    last, caches = prefill(cfg, params, tokens[:, :P],
+                           cache_len=P + 8 + cfg.vision_tokens, **kw)
+    return params, tokens, logits, aux, last, caches
+
+
+def lm_smoke(device) -> list:
+    """All ten smoke configs: the card against the port's CPU path on the
+    same numpy weights (``numpy_params``) and inputs, float32 and bfloat16
+    mode; forward logits and aux, prefill's last logits and caches, one
+    decode step on the CPU's caches."""
+    from repro_torch.configs import ARCHS, get_smoke_config
+    from repro_torch.models import decode_step, numpy_params
+    from repro_torch.models.blocks import tree_leaves, tree_map
+    rows = []
+    for arch in ARCHS:
+        cfg = get_smoke_config(arch)
+        tree = numpy_params(cfg, SEED)
+        row = {"arch": arch}
+        for mode, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            with compute_dtype(dtype):
+                cpu = smoke_on(cfg, tree, "cpu", dtype)
+                gpu = smoke_on(cfg, tree, device, dtype)
+                P = cpu[1].shape[1] - 1
+                pos = P + cfg.vision_tokens
+                tok = cpu[1][:, P:P + 1]
+                d_cpu, _ = decode_step(cfg, cpu[0], cpu[5], tok, pos)
+                d_gpu, _ = decode_step(
+                    cfg, gpu[0], tree_map(lambda t: t.to(device), cpu[5]),
+                    tok.to(device), pos)
+                torch.cuda.synchronize()
+            pairs = {"forward": (gpu[2], cpu[2]), "prefill": (gpu[4], cpu[4]),
+                     "decode": (d_gpu, d_cpu)}
+            caches = list(zip(tree_leaves(gpu[5]), tree_leaves(cpu[5])))
+            if mode == "float32":
+                errs = {k: rel_max(*v) for k, v in pairs.items()}
+                for k, e in errs.items():
+                    assert e <= SMOKE_F32_REL, f"{arch} float32 {k}: {e}"
+                aux = abs(float(gpu[3]) - float(cpu[3]))
+                assert aux <= SMOKE_F32_REL * max(abs(float(cpu[3])), 1.0)
+                for g, c in caches:        # bf16 caches: one bf16 ulp
+                    torch.testing.assert_close(g.float().cpu(), c.float(),
+                                               rtol=2 ** -7, atol=1e-5)
+                row["float32_rel_max"] = errs
+            else:
+                row["bfloat16"] = {k: bf16_criterion(*v, f"{arch} {k}")
+                                   for k, v in pairs.items()}
+                for g, c in caches:
+                    g, c = g.float().cpu().ravel(), c.float().ravel()
+                    if c.abs().max() > 0:
+                        cc = float(np.corrcoef(g.numpy(), c.numpy())[0, 1])
+                        assert cc > 0.99, f"{arch} bfloat16 cache: {cc}"
+        rows.append(row)
+    # the negative control: TF32 matmuls in the float32 path of one config
+    cfg = get_smoke_config("deepseek-7b")
+    tree = numpy_params(cfg, SEED)
+    with compute_dtype(torch.float32):
+        cpu = smoke_on(cfg, tree, "cpu", torch.float32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            gpu = smoke_on(cfg, tree, device, torch.float32)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    rows.append({"tf32_control": "deepseek-7b smoke, TF32 matmuls",
+                 "float32_rel_max": {"forward": rel_max(gpu[2], cpu[2]),
+                                     "prefill": rel_max(gpu[4], cpu[4])},
+                 "bound": SMOKE_F32_REL})
+    return rows
+
+
+def device_time_by_kernel(prof) -> list:
+    """Device-side entries of a ``torch.profiler`` run (kernels, copies,
+    memsets), by name, longest first."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append({"name": e.key[:80], "calls": e.count,
+                         "device_ms": us / 1e3})
+    return sorted(rows, key=lambda r: -r["device_ms"])
+
+
+def lm_profile(cfg, params, batch, device) -> dict:
+    """Two warm decode steps under ``torch.profiler``: wall, device busy
+    (one stream: the sum of its entries), idle share, the ten longest
+    device entries, and how many kernels a step launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    S = batch["tokens"].shape[1]
+    _, caches = make_prefill_step(cfg, cache_len=S + LM_GEN)(params, batch)
+    decode = make_decode_step(cfg)
+    tok = batch["tokens"][:, -1:]
+    _, tok, caches = decode(params, caches, tok, S)      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(2):
+            _, tok, caches = decode(params, caches, tok[:, None], S + 1 + i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_time_by_kernel(prof)
+    busy = sum(r["device_ms"] for r in rows)
+    return {"what": "two warm decode steps", "wall_ms": wall_ms,
+            "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall_ms if rows else None,
+            "device_entries_per_step": sum(r["calls"] for r in rows) / 2,
+            "by_device_time": rows[:10]}
+
+
+def lm_full(arch, layers, device) -> dict:
+    """One model at its published widths (depth cut to ``layers`` where
+    given) through ``lm_generate``, the CLI's function: twice (the second
+    run timed, and for MoE bit-compared with the first), then the float32
+    forward at the same positions."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import lm_batch, lm_generate
+    from repro_torch.models import forward, init_params
+    cfg = get_config(arch)
+    if layers is not None:
+        (stack,) = cfg.stacks
+        cfg = dataclasses.replace(
+            cfg, stacks=(dataclasses.replace(stack, count=layers),))
+    n_params = cfg.param_count()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device).manual_seed(SEED),
+                         device=device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    batch = lm_batch(cfg, LM_BATCH, LM_PROMPT, device)
+    first = lm_generate(cfg, params, batch, LM_GEN, device)
+    run = lm_generate(cfg, params, batch, LM_GEN, device)
+    peak = torch.cuda.max_memory_allocated(device)
+    profiled = lm_profile(cfg, params, batch, device) \
+        if arch == LM_FULL[0][0] else None
+    repeat = all(torch.equal(a, b) for a, b in zip(first.logits, run.logits)) \
+        and torch.equal(first.tokens, run.tokens)
+    if cfg.n_experts:
+        assert repeat, f"{arch}: two runs differ (the combine must not)"
+    # the float32 forward over prompt + generated tokens: position
+    # LM_PROMPT - 1 + i predicts generated token i; and the bfloat16
+    # forward over the same tokens, the precision's own distance from it
+    seq = torch.cat([batch["tokens"], run.tokens[:, :-1]], 1)
+    with compute_dtype(torch.float32):
+        ref, _, _ = forward(cfg, params, seq)
+    ref = ref[:, LM_PROMPT - 1:].float()
+    fwd_bf16 = forward(cfg, params, seq)[0][:, LM_PROMPT - 1:].float()
+    got = torch.stack(run.logits, 1).float()
+
+    def rel_l2(a):
+        return ((a - ref).norm(dim=-1) / ref.norm(dim=-1)).flatten()
+
+    rel, rel_fwd = rel_l2(got), rel_l2(fwd_bf16)
+    cc = float(np.corrcoef(got.cpu().numpy().ravel(),
+                           ref.cpu().numpy().ravel())[0, 1])
+    within = float((rel <= FULL_REL_L2).float().mean())
+    top1 = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    need = 0.9 if cfg.n_experts else 1.0
+    failures = []
+    if not torch.isfinite(got).all():
+        failures.append(f"{arch}: logits not finite")
+    ratio = float(rel.median() / rel_fwd.median())
+    if within < need or cc <= 0.99 or ratio > DECODE_VS_FORWARD:
+        failures.append(f"{arch}: bf16 decode vs float32 forward: {within} "
+                        f"of positions within {FULL_REL_L2}, cc {cc}, "
+                        f"median {ratio} x the bf16 forward's")
+    step_bytes = 8 * n_params      # f32 read, bf16 cast written and read
+    out = {"arch": arch, "layers": cfg.n_layers, "params": n_params,
+           "depth_cut": layers is not None, "init_s": t_init,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "prefill_ms": run.prefill_s * 1e3,
+           "prefill_tok_s": LM_BATCH * LM_PROMPT / run.prefill_s,
+           "decode_ms_per_step": run.decode_s * 1e3 / (LM_GEN - 1),
+           "decode_tok_s": LM_BATCH * (LM_GEN - 1) / run.decode_s,
+           "first_prefill_ms": first.prefill_s * 1e3,
+           "first_decode_ms_per_step": first.decode_s * 1e3 / (LM_GEN - 1),
+           "decode_step_bytes": step_bytes,
+           "decode_bound_ms": step_bytes / PEAK_BYTES_PER_S * 1e3,
+           "max_memory_allocated_gb": peak / 1e9,
+           "init_max_memory_allocated_gb": init_peak / 1e9,
+           "vs_float32_forward": {
+               "rel_l2_median": float(rel.median()),
+               "rel_l2_max": float(rel.max()), "within": within,
+               "bound": FULL_REL_L2, "cc": cc, "top1": top1,
+               "bf16_forward_rel_l2_median": float(rel_fwd.median()),
+               "bf16_forward_rel_l2_max": float(rel_fwd.max()),
+               "median_vs_bf16_forward": ratio,
+               "ratio_bound": DECODE_VS_FORWARD},
+           "repeat_bit_for_bit": repeat, "profile": profiled,
+           "sample_ids": run.tokens[0, :12].tolist(),
+           "failures": failures}
+    emit({"phase": "lm_full", **out})
+    del params, first, run, ref, got, fwd_bf16
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm(device) -> dict:
+    """The LM serving path (``models/``, ``runtime/steps.py``,
+    ``lm_generate``): the smoke configs against the CPU, then the
+    full-width runs.  Returns the TMFU launch counts it caused (none)."""
+    from repro_torch.kernels.tmfu import kernel as tk
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
+    t0 = time.perf_counter()
+    tk.reset_launch_counts()
+    full = [lm_full(arch, layers, device) for arch, layers in LM_FULL]
+    counts = dict(tk.launch_counts)          # read right behind the main path
+    failures = [f for row in full for f in row["failures"]]
+    assert not failures, failures
+    smoke = lm_smoke(device)
+    emit({"phase": "lm", "seconds": time.perf_counter() - t0,
+          "smoke": smoke, "full": [r["arch"] for r in full],
+          "launches": counts,
+          "tolerances": {"smoke_float32_rel_max": SMOKE_F32_REL,
+                         "smoke_bfloat16": "cc > 0.99, top-1 >= 0.95, "
+                                           "mismatches near-ties",
+                         "full_rel_l2": FULL_REL_L2,
+                         "full_median_vs_bf16_forward": DECODE_VS_FORWARD}})
+    return counts
+
+
+def phase_context_switch(kernels, names, device) -> None:
+    """The paper's comparison on the card: ``Overlay.time_context_switch``
+    (median of 20 loads, µs) for each benchmark kernel, beside
+    ``time_recompile`` (a fresh ``torch.compile`` of the DFG: trace,
+    inductor, a Triton kernel) for two of them."""
+    from repro_torch.core.overlay import Overlay, time_recompile
+    t0 = time.perf_counter()
+    ov = Overlay(device=device)
+    switch = {n: ov.time_context_switch(kernels[n], iters=20) * 1e6
+              for n in names}
+    rng = np.random.RandomState(SEED)
+    recompile = {}
+    for n in ("chebyshev", "poly6"):
+        k = kernels[n]
+        xs = [torch.from_numpy(rng.uniform(-2, 2, LANES).astype(np.float32))
+              .to(device) for _ in k.dfg.inputs]
+        recompile[n] = time_recompile(k.dfg, xs, iters=2)
+    emit({"phase": "context_switch", "seconds": time.perf_counter() - t0,
+          "context_switch_us": switch,
+          "recompile_s": recompile,
+          "ratio": {n: recompile[n] / (switch[n] * 1e-6) for n in recompile}})
+
+
 def phase_profile(kernels, names, device) -> None:
     """``--profile`` only: one warm pipelined ``flush`` of the serving trace
     under ``torch.profiler``; device time by kernel name and the share of
     the drain's wall time in which the device ran nothing."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import OverlayServer
     trace = make_trace(kernels, names, N_REQUESTS, LANES, N_TENANTS)
@@ -1277,18 +1648,9 @@ def phase_profile(kernels, names, device) -> None:
         srv.flush()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        # device-side entries only (kernels, memcpys): the host-side op that
-        # launched one reports the same device time again
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append({"name": e.key[:80], "calls": e.count,
-                         "device_ms": us / 1e3})
-    rows.sort(key=lambda r: -r["device_ms"])
+    # device-side entries only (kernels, memcpys): the host-side op that
+    # launched one reports the same device time again
+    rows = device_time_by_kernel(prof)
     busy_ms = sum(r["device_ms"] for r in rows)
     emit({"phase": "profile", "what": "one warm flush, bank_capacity=4",
           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -1317,6 +1679,8 @@ def main() -> int:
     by_path = {"serve": counts,
                "fleet": phase_fleet(kernels, names, device, oracle)}
     by_path["edge"] = phase_edge(kernels, names, device, oracle)
+    by_path["lm"] = phase_lm(device)
+    phase_context_switch(kernels, names, device)
     for name, rec in records.items():
         rec["launches"] = sum(c[name] for c in by_path.values())
         rec["launches_by_path"] = {p: c[name] for p, c in by_path.items()}

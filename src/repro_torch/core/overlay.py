@@ -33,6 +33,7 @@ a context out from under an in-flight launch (see ``core.bank``).
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -45,8 +46,8 @@ from repro_torch.core.bank import (DEFAULT_MAX_OUTPUTS, BankError, ContextBank,
 from repro_torch.core.dfg import DFG
 from repro_torch.core.isa import RF_DEPTH, Program, encode
 from repro_torch.core.schedule import Schedule, schedule
-from repro_torch.core.vm import (Context, host_dtype, make_context, pad_inputs,
-                                 resolve_device, to_host)
+from repro_torch.core.vm import (Context, dfg_eval, host_dtype, make_context,
+                                 pad_inputs, resolve_device, to_host)
 from repro_torch.kernels.tmfu import ops as tmfu_ops
 
 #: default per-tile batch width for bank dispatch (one CUDA block of lanes)
@@ -506,3 +507,54 @@ class Overlay:
         # on an unpinned plan only recycles)
         p.release(bank)
         return self.collect(p, ys)
+
+    # ------------------------------------------------------------ timing
+    def time_context_switch(self, kernel: CompiledKernel,
+                            iters: int = 20) -> float:
+        """Median seconds to swap a kernel onto the live overlay."""
+        ts = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            ctx = self.load(kernel)
+            _wait(ctx.op)
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts))
+
+
+def _wait(t: torch.Tensor) -> None:
+    """Return once the work that produces ``t`` is done on its device."""
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def spatial_jit(dfg: DFG):
+    """SCFU-SCN analogue: the DFG inlined into its own compiled program
+    (``torch.compile`` of a closure over ``dfg_eval``)."""
+
+    def run(xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        env = {name: x for name, x in zip(dfg.inputs, xs)}
+        out = dfg_eval(dfg, env)
+        return [out[o] for o in dfg.outputs]
+
+    return torch.compile(run, fullgraph=True)
+
+
+def time_recompile(dfg: DFG, xs, iters: int = 3) -> float:
+    """Seconds for the vendor-flow analogue: fresh trace + compile.
+
+    Every iteration starts from an empty compiler state
+    (``torch._dynamo.reset``) with inductor's on-disk caches off, so each
+    one traces, lowers and builds the program anew."""
+    import torch._dynamo
+    from torch._inductor import config as inductor_config
+    ts = []
+    with inductor_config.patch(force_disable_caches=True):
+        for _ in range(iters):
+            torch._dynamo.reset()
+            fn = spatial_jit(dfg)
+            t0 = time.perf_counter()
+            ys = fn(xs)
+            _wait(ys[0])
+            ts.append(time.perf_counter() - t0)
+    torch._dynamo.reset()
+    return float(np.median(ts))

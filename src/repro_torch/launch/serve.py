@@ -1,4 +1,9 @@
-"""Serving launcher: the async overlay engine on one GPU.
+"""Serving launcher: the async overlay engine and the LM path on one GPU.
+
+LM serving (prefill, then greedy decode through the cache)::
+
+  python -m repro_torch.launch.serve --arch deepseek-7b
+  python -m repro_torch.launch.serve --arch gemma3-4b --smoke --device cpu
 
 Multi-tenant overlay serving (the paper's one-pipeline-many-kernels claim
 at request scale)::
@@ -70,8 +75,9 @@ from repro_torch.telemetry import InMemorySink, MultiSink, adopt_counters
 __all__ = [
     "AdmissionControl", "AdmissionError", "AutoPump", "DEFAULT_TENANT",
     "DeficitRoundRobin", "OverlayRequest", "OverlayServer",
-    "ShardedOverlayServer", "TokenBucket", "WorkRequest", "main",
-    "overlay_demo", "tenant_latency_summary",
+    "Generation", "ShardedOverlayServer", "TokenBucket", "WorkRequest",
+    "lm_batch", "lm_generate", "main", "overlay_demo",
+    "tenant_latency_summary",
 ]
 
 
@@ -1695,17 +1701,103 @@ def overlay_demo(argv_ns) -> int:
     return 0
 
 
+@dataclasses.dataclass
+class Generation:
+    """What ``lm_generate`` returns: ``tokens`` [B, gen] int32 (the first
+    from the prefill's last logits, then one a decode step), ``logits``
+    the ``gen`` [B, V] logits each token was taken from, and the wall
+    seconds of the prefill and of the ``gen - 1`` decode steps (each
+    ending in a device sync)."""
+
+    tokens: torch.Tensor
+    logits: list
+    prefill_s: float
+    decode_s: float
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def lm_batch(cfg, batch_size: int, prompt_len: int, device, seed: int = 1):
+    """The CLI's batch: seeded prompt ids (drawn on the CPU, so every
+    device gets the same ones) and the zero vision / frame embeds of the
+    archs with those towers."""
+    from repro_torch.runtime.steps import decorate_batch
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (batch_size, prompt_len),
+                           generator=gen, dtype=torch.int32)
+    batch = {"tokens": tokens.to(device)}
+    dc = argparse.Namespace(local_batch=batch_size, seq_len=prompt_len)
+    return decorate_batch(cfg, dc, batch)
+
+
+def lm_generate(cfg, params, batch, gen: int, device=None) -> Generation:
+    """Prefill the prompts of ``batch``, then ``gen - 1`` greedy decode
+    steps through the cache (the cache holds prompt + vision tokens +
+    ``gen``), as the reference CLI does."""
+    from repro_torch.core.vm import resolve_device
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    device = resolve_device(device)
+    S = batch["tokens"].shape[1]
+    cache_len = S + gen + cfg.vision_tokens
+    prefill = make_prefill_step(cfg, cache_len=cache_len)
+    decode = make_decode_step(cfg)
+
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, batch)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+
+    out, all_logits = [tok], [logits]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, tok, caches = decode(params, caches, tok,
+                                     S + cfg.vision_tokens + i)
+        tok = tok[:, None]
+        out.append(tok)
+        all_logits.append(logits)
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+    return Generation(tokens=torch.cat(out, 1), logits=all_logits,
+                      prefill_s=t_prefill, decode_s=t_decode)
+
+
+def lm_demo(args) -> int:
+    """``--arch``: seeded weights, B prompts of ``--prompt-len`` ids,
+    prefill then greedy decode; prints the reference CLI's three lines."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.vm import resolve_device
+    from repro_torch.models import init_params
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    params = init_params(cfg, torch.Generator(device).manual_seed(0),
+                         device=device)
+    B, S, G = args.batch, args.prompt_len, args.gen
+    g = lm_generate(cfg, params, lm_batch(cfg, B, S, device), G, device)
+    ids = g.tokens.cpu().numpy()
+    print(f"prefill: {B}x{S} in {g.prefill_s * 1e3:.1f} ms "
+          f"({B * S / g.prefill_s:,.0f} tok/s)")
+    print(f"decode:  {G - 1} steps in {g.decode_s * 1e3:.1f} ms "
+          f"({B * (G - 1) / max(g.decode_s, 1e-9):,.0f} tok/s)")
+    print("sample token ids:", ids[0][:12].tolist())
+    return 0
+
+
 def main(argv=None):
     from repro_torch.sched.rounds import ROUND_POLICIES
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
     ap.add_argument("--overlay-demo", action="store_true",
                     help="serve mixed overlay kernels from a ContextBank")
     ap.add_argument("--bank", type=int, default=4,
                     help="context-bank capacity for --overlay-demo")
     ap.add_argument("--tile", type=int, default=128)
     ap.add_argument("--device", default=None,
-                    help="torch device for --overlay-demo (default: cuda; "
-                         "the CPU only when asked for by name)")
+                    help="torch device (default: cuda; the CPU only when "
+                         "asked for by name)")
     ap.add_argument("--policy", default=None,
                     choices=sorted(ROUND_POLICIES),
                     help="round-formation policy for --overlay-demo "
@@ -1717,11 +1809,17 @@ def main(argv=None):
                          "requests")
     ap.add_argument("--stream", action="store_true",
                     help="consume results via as_completed instead of flush")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
     args = ap.parse_args(argv)
 
-    if not args.overlay_demo:
-        ap.error("--overlay-demo is the one mode of this launcher")
-    return overlay_demo(args)
+    if args.overlay_demo:
+        return overlay_demo(args)
+    if args.arch is None:
+        ap.error("--arch is required unless --overlay-demo is given")
+    return lm_demo(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,299 @@
+"""Composable LM definition covering all assigned architecture families.
+
+A ``ModelConfig`` is a list of stacks (see blocks.py) + embedding/head and
+optional encoder (whisper) / vision-stub (internvl2) plumbing.  All models
+share one forward/prefill/decode implementation.
+
+Params are a tree of float32 tensors with the reference's keys and
+nesting (``stacks`` a list per stack of a list per block; shared blocks
+unstacked), so a tree of numpy arrays carries weights between the two
+packages: ``params_from_numpy`` checks it against ``init_params``' tree
+and places it on a device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.vm import resolve_device
+from repro_torch.models import blocks as B
+from repro_torch.models.blocks import BlockSpec, StackSpec
+from repro_torch.models.layers import COMPUTE_DTYPE, Init, init_norm, rms_norm
+from repro_torch.models.ssm import SSMDims
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderSpec:
+    """Whisper-style encoder: precomputed frame embeddings in, memory out."""
+    stacks: tuple[StackSpec, ...]
+    frame_dim: int            # stub frontend output dim (== d_model)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int
+    stacks: tuple[StackSpec, ...]
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    expert_d_ff: int = 0
+    shared_expert_d_ff: int = 0
+    # SSM
+    ssm: Optional[SSMDims] = None
+    # enc-dec (audio)
+    encoder: Optional[EncoderSpec] = None
+    # VLM stub: number of precomputed patch-embedding tokens prepended
+    vision_tokens: int = 0
+    # execution mode: time-multiplexed (tm) vs spatial (split per layer)
+    scan_layers: bool = True
+    # sinusoidal absolute positions added to decoder embeddings (whisper)
+    use_abs_pos: bool = False
+    # remat policy for the training slice ('full' | 'dots')
+    remat_policy: str = "full"
+    # attention family flags
+    full_attention: bool = True   # False => sub-quadratic (ssm/hybrid/local)
+    aux_loss_weight: float = 0.01
+
+    @property
+    def n_layers(self) -> int:
+        return sum(s.count * len(s.blocks) for s in self.stacks)
+
+    def param_count(self) -> int:
+        """Total params (from shapes: ``init_params`` on the meta device,
+        which allocates nothing)."""
+        shapes = init_params(self, device="meta")
+        return sum(x.numel() for x in B.tree_leaves(shapes))
+
+    def active_param_count(self) -> int:
+        """Params active per token (MoE: top_k+shared experts only)."""
+        total = self.param_count()
+        if not self.n_experts:
+            return total
+        per_expert = 3 * self.d_model * self.expert_d_ff
+        n_moe = sum(s.count for s in self.stacks
+                    for b in s.blocks if b.moe)
+        inactive = n_moe * (self.n_experts - self.top_k) * per_expert
+        return total - inactive
+
+
+def dense_stacks(n_layers: int, *, window_pattern=None, moe=False,
+                 causal=True, use_rope=True) -> tuple[StackSpec, ...]:
+    """Uniform dense/MoE stacks; window_pattern=(sizes...) cycles layers."""
+    if window_pattern is None:
+        return (StackSpec(n_layers, (BlockSpec("attn", moe=moe,
+                                               causal=causal,
+                                               use_rope=use_rope),)),)
+    P = len(window_pattern)
+    full, rem = divmod(n_layers, P)
+    sts = []
+    if full:
+        sts.append(StackSpec(full, tuple(
+            BlockSpec("attn", window=w, moe=moe) for w in window_pattern)))
+    if rem:
+        sts.append(StackSpec(1, tuple(
+            BlockSpec("attn", window=w, moe=moe)
+            for w in window_pattern[:rem])))
+    return tuple(sts)
+
+
+# ----------------------------------------------------------------- params
+def _init_params(cfg: ModelConfig, init: Init) -> dict:
+    p = {
+        "embed": init.normal((cfg.vocab, cfg.d_model), 0.02),
+        "head": init.normal((cfg.d_model, cfg.vocab), cfg.d_model ** -0.5),
+        "final_norm": init_norm(init, (), cfg.d_model),
+        "stacks": [B.init_stack(init, cfg, s) for s in cfg.stacks],
+    }
+    if cfg.encoder is not None:
+        p["enc_stacks"] = [B.init_stack(init, cfg, s)
+                           for s in cfg.encoder.stacks]
+        p["enc_norm"] = init_norm(init, (), cfg.d_model)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                device=None) -> dict:
+    """Seeded weights drawn by ``generator`` on ``device`` (None: the CUDA
+    device; ``"meta"`` for shapes only).  The shapes and scales are the
+    reference's; its ``jax.random`` stream cannot be reproduced, so
+    weights cross between the packages through ``params_from_numpy``."""
+    return _init_params(cfg, Init.torch(generator, resolve_device(device)))
+
+
+def numpy_params(cfg: ModelConfig, seed: int) -> dict:
+    """Weights of ``init_params``' shapes and scales drawn by
+    ``numpy.random.RandomState(seed)``: a tree of float32 numpy arrays,
+    for ``params_from_numpy`` and for the reference (``jnp.asarray``)."""
+    tree = _init_params(cfg, Init.numpy(seed))
+    return B.tree_map(lambda t: t.numpy(), tree)
+
+
+def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
+    """The weight carrier: a tree of arrays with the reference's keys and
+    nesting (``jax.tree.map(np.asarray, params)`` of the reference, or
+    ``numpy_params``) as float32 tensors on ``device``.  Raises where the
+    tree's keys, list lengths or shapes differ from ``init_params``'."""
+    device = resolve_device(device)
+    want = init_params(cfg, device="meta")
+
+    def carry(w, a, path):
+        if isinstance(w, dict):
+            if not isinstance(a, dict) or set(a) != set(w):
+                raise ValueError(f"params{path}: keys {sorted(a)} != "
+                                 f"{sorted(w)}")
+            return {k: carry(w[k], a[k], f"{path}[{k!r}]") for k in w}
+        if isinstance(w, list):
+            if not isinstance(a, (list, tuple)) or len(a) != len(w):
+                raise ValueError(f"params{path}: expected a list of "
+                                 f"{len(w)}")
+            return [carry(x, y, f"{path}[{i}]")
+                    for i, (x, y) in enumerate(zip(w, a))]
+        arr = np.asarray(a, dtype=np.float32)
+        if tuple(arr.shape) != tuple(w.shape):
+            raise ValueError(f"params{path}: shape {arr.shape} != "
+                             f"{tuple(w.shape)}")
+        return torch.tensor(arr, device=device)
+
+    return carry(want, tree, "")
+
+
+# ---------------------------------------------------------------- forward
+def _embed(cfg, params, tokens):
+    h = params["embed"].to(COMPUTE_DTYPE)[tokens]
+    # sqrt(d_model) rounded to the compute dtype, as the reference's
+    # jnp.asarray(..., COMPUTE_DTYPE); a Python number, so no host copy
+    scale = torch.tensor(cfg.d_model ** 0.5, dtype=COMPUTE_DTYPE).item()
+    return h * scale
+
+
+def _sinusoid(S, D, dtype, device):
+    pos = np.arange(S)[:, None]
+    dim = np.arange(0, D, 2)[None, :] / D
+    ang = pos / (10000.0 ** dim)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], -1)
+    return torch.from_numpy(emb).to(device=device, dtype=dtype)
+
+
+def _positions(Bsz, S, device):
+    return torch.arange(S, device=device)[None].expand(Bsz, S)
+
+
+def encode(cfg, params, frame_embeds):
+    """Whisper encoder: frame_embeds [B,S,D] (stub frontend output)."""
+    h = frame_embeds.to(COMPUTE_DTYPE) \
+        + _sinusoid(frame_embeds.shape[1], cfg.d_model, COMPUTE_DTYPE,
+                    frame_embeds.device)[None]
+    positions = _positions(h.shape[0], h.shape[1], h.device)
+    for sp, stack in zip(params["enc_stacks"], cfg.encoder.stacks):
+        h, _, _ = B.run_stack(cfg, stack, sp, h, positions, mode="train")
+    return rms_norm(params["enc_norm"], h)
+
+
+def forward(cfg: ModelConfig, params, tokens, *, extra_embeds=None,
+            frame_embeds=None, mode="train", caches=None):
+    """Full-sequence pass.  tokens [B,S]; extra_embeds [B,Sv,D] (vision);
+    frame_embeds [B,Se,D] (audio encoder input).
+
+    Returns (logits [B,S_total,V], aux_loss, new_caches).
+    """
+    h = _embed(cfg, params, tokens)
+    if extra_embeds is not None:
+        h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
+    Bsz, S, _ = h.shape
+    if cfg.use_abs_pos:
+        h = h + _sinusoid(S, cfg.d_model, h.dtype, h.device)[None]
+    positions = _positions(Bsz, S, h.device)
+    memory, mem_pos = None, None
+    if cfg.encoder is not None:
+        memory = encode(cfg, params, frame_embeds)
+        mem_pos = _positions(memory.shape[0], memory.shape[1], h.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    new_caches = []
+    for i, (sp, stack) in enumerate(zip(params["stacks"], cfg.stacks)):
+        h, aux, c = B.run_stack(
+            cfg, stack, sp, h, positions, mode=mode, memory=memory,
+            mem_positions=mem_pos,
+            caches=None if caches is None else caches[i])
+        aux_total = aux_total + aux
+        new_caches.append(c)
+    h = rms_norm(params["final_norm"], h)
+    logits = h @ params["head"].to(h.dtype)
+    return logits, aux_total, new_caches
+
+
+def loss_fn(cfg, params, batch):
+    """Next-token cross entropy.  batch: tokens [B,S] (+ stub embeds)."""
+    tokens = batch["tokens"]
+    logits, aux, _ = forward(
+        cfg, params, tokens[:, :-1],
+        extra_embeds=batch.get("vision_embeds"),
+        frame_embeds=batch.get("frame_embeds"), mode="train")
+    # targets align with the text positions (vision prefix emits no loss)
+    tgt = tokens[:, 1:]
+    logits = logits[:, -tgt.shape[1]:].float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt[..., None].long())[..., 0]
+    nll = (logz - gold).mean()
+    return nll + cfg.aux_loss_weight * aux
+
+
+# ------------------------------------------------------------------ caches
+def init_caches(cfg, batch, cache_len, mem_len=0, dtype=torch.bfloat16,
+                device=None):
+    device = resolve_device(device)
+    return [B.init_stack_cache(cfg, s, batch, cache_len, mem_len, dtype,
+                               device=device)
+            for s in cfg.stacks]
+
+
+def prefill(cfg, params, tokens, *, cache_len=None, extra_embeds=None,
+            frame_embeds=None):
+    """Run the full prompt, returning (logits_last, caches)."""
+    S = tokens.shape[1] + (extra_embeds.shape[1] if extra_embeds is not None
+                           else 0)
+    cache_len = cache_len or S
+    mem_len = frame_embeds.shape[1] if frame_embeds is not None else 0
+    caches = init_caches(cfg, tokens.shape[0], cache_len, mem_len,
+                         device=tokens.device)
+    logits, _, new_caches = forward(
+        cfg, params, tokens, extra_embeds=extra_embeds,
+        frame_embeds=frame_embeds, mode="prefill", caches=caches)
+    return logits[:, -1], new_caches
+
+
+def decode_step(cfg, params, caches, token, pos):
+    """One token step.  token [B,1]; pos absolute position (an int, or a
+    0-d tensor read once on the host).
+
+    Returns (logits [B,V], new_caches)."""
+    pos = int(pos)
+    h = _embed(cfg, params, token)
+    if cfg.use_abs_pos:
+        D = cfg.d_model
+        pos_f = torch.full((), float(pos), dtype=torch.float32,
+                           device=h.device)
+        dim = torch.arange(0, D, 2, device=h.device) / D
+        ang = pos_f / (10000.0 ** dim)
+        emb = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+        h = h + emb.to(h.dtype)[None, None, :]
+    new_caches = []
+    for i, (sp, stack) in enumerate(zip(params["stacks"], cfg.stacks)):
+        h, _, c = B.run_stack(cfg, stack, sp, h, None, mode="decode",
+                              caches=caches[i], pos=pos)
+        new_caches.append(c)
+    h = rms_norm(params["final_norm"], h)
+    logits = (h @ params["head"].to(h.dtype))[:, 0]
+    return logits, new_caches
