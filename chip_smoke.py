@@ -86,21 +86,44 @@ Phases, each printing one JSON line:
                criterion), and a TF32 control.  The path launches none of
                the TMFU kernels: counters set to 0 before the full-width
                runs, read after.
-8. ``context_switch``  ``Overlay.time_context_switch`` for the nine
+8. ``train``   the training path (``runtime/optim.py``, ``compress.py``,
+               ``steps.make_train_step``, ``data/``,
+               ``distributed/checkpoint.py``, ``launch/train.py``,
+               ``launch/trainer_tenant.py``).  deepseek-7b at its
+               published widths cut to 12 of its 30 layers (3.27 B params;
+               p + g + m + v in float32 fill 52.3 GB), B = 8, S = 128, the
+               reference CLI's optimizer, remat "full", updated in place,
+               through ``run_training`` for 8 steps: step 0 first in
+               bfloat16 and in float32 (loss within 1 %, every gradient
+               leaf's cosine >= 0.99), then ms a step, tokens/s, peak
+               memory, the loss and grad-norm trace beside the step's
+               bounds; one step under ``torch.profiler`` and one with
+               remat "dots".  The ten smoke configs' loss and gradients,
+               card against the port's CPU path (float32 mode, 1e-4).  A
+               ``TrainingTenant`` on a CUDA ``OverlayServer`` (bank 4)
+               with the serve trace's requests between its rounds:
+               params, optimizer state and losses bit-equal to a
+               standalone run on the card, every request bit-equal to the
+               oracles, serving p50 / p99 with and without it; the TMFU
+               counters set to 0 before this drive and read after it.
+               The CLI with checkpoints and a simulated failure, in a
+               subprocess.
+9. ``context_switch``  ``Overlay.time_context_switch`` for the nine
                benchmark kernels on the card (median of 20, µs) beside
                ``time_recompile`` (a fresh ``torch.compile``: dynamo,
                inductor, a Triton kernel) for two of them: the paper's
                context switch against rebuilding the spatial design.
-9. ``kernels`` one line with every kernel's launches (summed over the
-               serve, fleet, edge and lm paths, and by path), error, time,
-               plain time and bound; the card's line from nvidia-smi; and
-               the verdict as the last line.
+10. ``kernels`` one line with every kernel's launches (summed over the
+               serve, fleet, edge, lm and train paths, and by path),
+               error, time, plain time and bound; the card's line from
+               nvidia-smi; and the verdict as the last line.
 
 ``--profile`` adds one warm ``flush`` under ``torch.profiler`` (device time
-by kernel name, the device's idle share of the drain) before step 9.
+by kernel name, the device's idle share of the drain) before step 10.
 """
 
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -1605,6 +1628,414 @@ def phase_lm(device) -> dict:
     return counts
 
 
+# ------------------------------------------------------------- training path
+#: the full-width run: deepseek-7b at its published widths, its 30 layers
+#: cut to 12 (p + g + m + v in float32 are 16 B a param: 52.3 GB; all 30
+#: layers would need 110.6 GB), with the reference CLI's batch, sequence
+#: and optimizer; remat "full", updated in place
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_PARAMS = "deepseek-7b", 12, 3_267_465_216
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 8
+#: step 0 of that run, bfloat16 (the models' mode) against float32 (TF32
+#: off), before any optimizer state exists: the loss within 1 %, and the
+#: cosine of every gradient leaf's two values at least 0.99
+TRAIN_BF16_LOSS_REL, TRAIN_BF16_COSINE = 0.01, 0.99
+#: the co-scheduled run: a TrainingTenant (deepseek-7b smoke) on a CUDA
+#: OverlayServer, latency requests of the serve trace between its rounds
+TENANT_STEPS, TENANT_YIELD, TENANT_BANK, TENANT_PER_BEAT = 8, 2, 4, 8
+#: published dense bfloat16 tensor-core peak of one H100 SXM
+PEAK_BF16_FLOPS = 989e12
+
+
+def train_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    (stack,) = cfg.stacks
+    return dataclasses.replace(
+        cfg, stacks=(dataclasses.replace(stack, count=TRAIN_LAYERS),))
+
+
+def train_step_work(cfg, B: int, S: int) -> dict:
+    """Bytes and operations of one training step of ``cfg`` at B x S.
+
+    ``min``: the step as a function: params, m and v read once and
+    written once (24 B a param), the weight products' FLOPs (forward,
+    backward 2x, the remat's second forward for the stacked layers) and
+    the attention products.  ``code``: what this code's structure moves
+    on top: per stacked matmul weight, a float32 read and bf16 cast
+    written and read in the forward and again in the recompute (16 B),
+    the bf16 weight read by the input gradient, the bf16 weight gradient
+    written, read and widened to float32, and UnbindBackward's stack of
+    the per-layer float32 gradients (18 B); the head likewise without the
+    recompute and the stack (18 B); the embedding's cast and its
+    gradient's zero fill and widening (14 B); the optimizer's gradient
+    norm (4 B) and update (p, g, m, v read, p, m, v written: 28 B) over
+    every param."""
+    from repro_torch.models import init_params
+    from repro_torch.models.blocks import tree_leaves_with_path
+    shapes = init_params(cfg, device="meta")
+    P = sum(x.numel() for _, x in tree_leaves_with_path(shapes))
+    P_stack = sum(x.numel() for p, x in tree_leaves_with_path(
+        shapes["stacks"]) if p.endswith("['w']"))
+    P_head, P_embed = shapes["head"].numel(), shapes["embed"].numel()
+    T = B * (S - 1)
+    flops = (8 * P_stack + 6 * P_head) * T \
+        + 16 * B * (S - 1) ** 2 * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    code = 34 * P_stack + 18 * P_head + 14 * P_embed + 32 * P
+    return {"params": P, "stacked_matmul_params": P_stack, "tokens": T,
+            "flops": flops, "min_bytes": 24 * P, "code_bytes": code,
+            "bound_ms": max(24 * P / PEAK_BYTES_PER_S,
+                            flops / PEAK_BF16_FLOPS) * 1e3,
+            "bound_by": "bytes" if 24 * P / PEAK_BYTES_PER_S
+            >= flops / PEAK_BF16_FLOPS else "operations",
+            "code_bytes_bound_ms": code / PEAK_BYTES_PER_S * 1e3,
+            "matmul_bound_ms": flops / PEAK_BF16_FLOPS * 1e3}
+
+
+def leaf_cosines(a, b) -> list:
+    from repro_torch.models.blocks import tree_leaves_with_path
+    out = []
+    for (path, x), (_, y) in zip(tree_leaves_with_path(a),
+                                 tree_leaves_with_path(b)):
+        x, y = x.float().flatten(), y.float().flatten()
+        den = float(x.norm() * y.norm())
+        out.append((path, float(torch.dot(x, y)) / den if den else 1.0))
+    return out
+
+
+def train_profile(step_fn, params, opt_state, batch) -> dict:
+    """One step under ``torch.profiler``: wall, device busy (the sum of
+    its kernels, copies and memsets: one stream), idle share; device time
+    by kind — weight casts and copies, matmuls, the optimizer's update
+    (the kernels launched inside ``train_step.update``; backward's run on
+    autograd's own thread, so only the update is attributed by range),
+    the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {"casts_and_copies": 0.0, "matmuls": 0.0, "other": 0.0}
+    update_ms, n_entries, rows = 0.0, 0, []
+    for e in prof.key_averages():
+        if e.key == "train_step.update":
+            if e.device_type != DeviceType.CUDA:
+                update_ms = getattr(e, "device_time_total",
+                                    getattr(e, "cuda_time_total", 0)) / 1e3
+            continue              # a range, not a device entry of its own
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) / 1e3
+        name = e.key.lower()
+        if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass",
+                                   "sm90_")):
+            kinds["matmuls"] += ms
+        elif "copy" in name or "memcpy" in name or "memset" in name:
+            kinds["casts_and_copies"] += ms
+        else:
+            kinds["other"] += ms
+        n_entries += e.count
+        rows.append({"name": e.key[:80], "calls": e.count, "device_ms": ms})
+    busy = sum(kinds.values())
+    # the update launches elementwise kernels only ("other")
+    kinds["other"] -= update_ms
+    kinds["optimizer_update"] = update_ms
+    return {"what": "one step, donate=True", "wall_ms": wall_ms,
+            "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall_ms if busy else None,
+            "device_entries": n_entries, "by_kind_ms": kinds,
+            "top": sorted(rows, key=lambda r: -r["device_ms"])[:8]}, \
+        params, opt_state
+
+
+def train_full(device) -> dict:
+    """deepseek-7b, published widths, 12 layers: the step-0 checks, then
+    ``run_training`` (donate) for ``TRAIN_STEPS`` steps, one profiled
+    step, and one step with ``remat_policy="dots"``."""
+    import dataclasses
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import init_params
+    from repro_torch.runtime import optim as O
+    from repro_torch.runtime.steps import loss_and_grads, make_train_step
+    cfg = train_config()
+    work = train_step_work(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    assert work["params"] == TRAIN_PARAMS, work["params"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device).manual_seed(SEED),
+                         device=device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    dc = DataConfig(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)
+    corpus = SyntheticCorpus(dc)
+    batch = corpus.batch(0)
+    batch["tokens"] = batch["tokens"].to(device)
+    # step 0, bfloat16 against float32, before any optimizer state
+    loss_bf, g_bf = loss_and_grads(cfg, params, batch)
+    again = loss_and_grads(cfg, params, batch)
+    same_tree_bits(again, (loss_bf, g_bf), "step 0 twice")
+    del again
+    with compute_dtype(torch.float32):
+        loss_f, g_f = loss_and_grads(cfg, params, batch)
+    cos = leaf_cosines(g_bf, g_f)
+    check_peak = torch.cuda.max_memory_allocated(device)
+    del g_bf, g_f
+    loss_rel = abs(float(loss_bf) - float(loss_f)) / abs(float(loss_f))
+    worst = min(cos, key=lambda c: c[1])
+    failures = []
+    if loss_rel > TRAIN_BF16_LOSS_REL:
+        failures.append(f"step-0 loss bf16 {float(loss_bf)} vs float32 "
+                        f"{float(loss_f)}: {loss_rel}")
+    if worst[1] < TRAIN_BF16_COSINE:
+        failures.append(f"step-0 grad cosine {worst}")
+    # the run: the reference CLI's optimizer, in place
+    oc = O.OptConfig(lr=3e-4, total_steps=max(TRAIN_STEPS, 10),
+                     warmup_steps=max(2, TRAIN_STEPS // 20))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    recs = []
+    for rec in run_training(cfg, oc, dc, steps=TRAIN_STEPS, corpus=corpus,
+                            params=params, donate=True):
+        recs.append({k: rec[k] for k in ("step", "loss", "grad_norm", "lr",
+                                         "wall_s")})
+        opt_state = rec["opt_state"]
+    peak = torch.cuda.max_memory_allocated(device)
+    losses = [r["loss"] for r in recs]
+    if not all(np.isfinite(losses)):
+        failures.append(f"losses not finite: {losses}")
+    walls = [r["wall_s"] for r in recs]
+    ms = statistics.median(walls[1:]) * 1e3
+    step_fn = make_train_step(cfg, oc, donate=True)
+    nxt = corpus.batch(TRAIN_STEPS)
+    nxt["tokens"] = nxt["tokens"].to(device)
+    prof, params, opt_state = train_profile(step_fn, params, opt_state, nxt)
+    # remat_policy="dots": two steps (the first pays the policy's set-up),
+    # their own peak
+    dots = make_train_step(dataclasses.replace(cfg, remat_policy="dots"),
+                           oc, donate=True)
+    torch.cuda.reset_peak_memory_stats(device)
+    dots_ms, dots_loss = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        params, opt_state, m = dots(params, opt_state, nxt)
+        dots_loss.append(float(m["loss"]))
+        dots_ms.append((time.perf_counter() - t0) * 1e3)
+    dots_peak = torch.cuda.max_memory_allocated(device)
+    out = {"arch": TRAIN_ARCH, "layers": TRAIN_LAYERS,
+           "params": work["params"], "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "remat_policy": "full",
+           "init_s": t_init, "ms_per_step": ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+           "first_step_ms": walls[0] * 1e3,
+           "max_memory_allocated_gb": peak / 1e9,
+           "step0_checks_max_memory_allocated_gb": check_peak / 1e9,
+           "trace": recs, "work": work,
+           "step0": {"loss_bf16": float(loss_bf), "loss_f32": float(loss_f),
+                     "loss_rel": loss_rel, "bound": TRAIN_BF16_LOSS_REL,
+                     "min_grad_cosine": worst[1], "min_at": worst[0],
+                     "cosine_bound": TRAIN_BF16_COSINE},
+           "profile": prof,
+           "step0_repeat_bit_for_bit": True,
+           "dots": {"step_ms": dots_ms, "loss": dots_loss,
+                    "max_memory_allocated_gb": dots_peak / 1e9},
+           "failures": failures}
+    emit({"phase": "train_full", **out})
+    del params, opt_state, recs, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_smoke(device) -> list:
+    """The ten smoke configs: one step's loss and gradients on the card
+    against the port's CPU path, float32 mode (TF32 off), the same
+    ``numpy_params`` weights and tokens."""
+    from repro_torch.configs import ARCHS, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import numpy_params, params_from_numpy
+    from repro_torch.models.blocks import tree_leaves_with_path
+    from repro_torch.runtime.steps import decorate_batch, loss_and_grads
+    rows = []
+    for arch in ARCHS:
+        cfg = get_smoke_config(arch)
+        tree = numpy_params(cfg, SEED)
+        tokens = torch.from_numpy(np.random.RandomState(1).randint(
+            0, cfg.vocab, (2, 33)).astype(np.int32))
+        dc = DataConfig(2, 32, cfg.vocab)
+        out = {}
+        with compute_dtype(torch.float32):
+            for dev in ("cpu", device):
+                params = params_from_numpy(cfg, tree, dev)
+                batch = decorate_batch(cfg, dc, {"tokens": tokens.to(dev)})
+                out[str(dev)] = loss_and_grads(cfg, params, batch)
+            torch.cuda.synchronize()
+        (lc, gc), (lg, gg) = out["cpu"], out[str(device)]
+        loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+        errs = [(path, rel_max(g, c)) for (path, g), (_, c) in zip(
+            tree_leaves_with_path(gg), tree_leaves_with_path(gc))]
+        worst = max(errs, key=lambda e: e[1])
+        assert loss_rel <= SMOKE_F32_REL, f"{arch} train loss: {loss_rel}"
+        assert worst[1] <= SMOKE_F32_REL, f"{arch} grad {worst}"
+        rows.append({"arch": arch, "loss_rel": loss_rel,
+                     "grad_rel_max": worst[1], "grad_rel_max_at": worst[0],
+                     "leaves": len(errs)})
+    return rows
+
+
+def same_tree_bits(a, b, what) -> None:
+    from repro_torch.models.blocks import tree_leaves_with_path
+    la, lb = tree_leaves_with_path(a), tree_leaves_with_path(b)
+    assert [p for p, _ in la] == [p for p, _ in lb], what
+    for (path, x), (_, y) in zip(la, lb):
+        assert x.dtype == y.dtype and x.shape == y.shape, (what, path)
+        if not torch.equal(x.reshape(-1).view(torch.uint8),
+                           y.reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"{what}{path}: bits differ")
+
+
+def train_tenant(kernels, names, device, oracle):
+    """A ``TrainingTenant`` on a CUDA ``OverlayServer`` with latency
+    requests of the serve trace between its rounds; against a standalone
+    ``run_training`` on the card (default stream), bit for bit, and every
+    request against the serve phase's oracles.  Then the same beats with
+    no tenant: serving latency with and without training.  Returns the
+    report and the TMFU launch counts of the co-scheduled drive."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.tmfu import kernel as tk
+    from repro_torch.launch.serve import OverlayServer
+    from repro_torch.launch.train import run_training
+    from repro_torch.launch.trainer_tenant import TrainingTenant
+    from repro_torch.runtime import optim as O
+    from repro_torch.telemetry import check_stats
+    cfg = get_smoke_config(TRAIN_ARCH)
+    oc = O.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    dc = DataConfig(2, 32, cfg.vocab)
+    alone = list(run_training(cfg, oc, dc, steps=TENANT_STEPS,
+                              device=device))
+    trace = make_trace(kernels, names, N_REQUESTS, LANES, N_TENANTS)
+
+    def drive(with_tenant, n_beats=None):
+        srv = OverlayServer(bank_capacity=TENANT_BANK, tile=TILE,
+                            device=device)
+        tenant = (TrainingTenant(srv, cfg, oc, dc, steps=TENANT_STEPS,
+                                 yield_every=TENANT_YIELD)
+                  if with_tenant else None)
+        beats, i = 0, 0
+        while (not tenant.done) if tenant else beats < n_beats:
+            tickets = []
+            for _ in range(TENANT_PER_BEAT):
+                k, xs, _ = trace[i % len(trace)]
+                tickets.append((i % len(trace),
+                                srv.submit(k, xs, tenant="alice")))
+                i += 1
+            if tenant:
+                tenant.tick()
+            res = srv.flush()
+            for idx, t in tickets:
+                assert t in res, f"beat {beats}: request {idx} starved"
+                outs = host_outputs(res[t])
+                same_outputs(outs, oracle["flush_sync"][idx],
+                             f"co-scheduled, request {idx} vs flush_sync")
+                same_outputs(outs, oracle["plain"][idx],
+                             f"co-scheduled, request {idx} vs plain")
+            beats += 1
+            assert beats < 64, "the co-scheduled run did not finish"
+        check_stats("engine", srv.stats())
+        return srv, tenant, beats, i
+
+    tk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv, tenant, beats, n_req = drive(True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(tk.launch_counts)          # read right behind the main path
+    assert (tenant.stream is not None) == (device.type == "cuda")
+    assert tenant.losses == [r["loss"] for r in alone], "loss trace differs"
+    same_tree_bits(tenant.params, alone[-1]["params"], "tenant params")
+    same_tree_bits(tenant.opt_state, alone[-1]["opt_state"],
+                   "tenant opt_state")
+    st = tenant.stats()
+    check_stats("train", st)
+    with_lat = srv.tenant_latency_percentiles()["alice"]
+    t0 = time.perf_counter()
+    ded, _, _, _ = drive(False, beats)
+    torch.cuda.synchronize()
+    ded_wall = time.perf_counter() - t0
+    ded_lat = ded.tenant_latency_percentiles()["alice"]
+    return {"arch": cfg.name, "steps": TENANT_STEPS,
+            "yield_every": TENANT_YIELD, "bank": TENANT_BANK,
+            "beats": beats, "requests": n_req,
+            "requests_per_beat": TENANT_PER_BEAT, "lanes": LANES,
+            "bit_equal_to_standalone": True, "losses": tenant.losses,
+            "tenant_stats": st, "wall_s": wall,
+            "dedicated_wall_s": ded_wall,
+            "latency_ms": {"with_training": {k: with_lat[k] * 1e3
+                                             for k in ("p50", "p99")},
+                           "dedicated": {k: ded_lat[k] * 1e3
+                                         for k in ("p50", "p99")}}}, counts
+
+
+def train_cli() -> dict:
+    """The CLI in a subprocess: checkpoints every 4 steps, a simulated
+    failure before step 6, the restore, and the end."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as ck:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               TRAIN_ARCH, "--smoke", "--steps", "8", "--ckpt-dir", ck,
+               "--ckpt-every", "4", "--simulate-failure-at", "6"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600, cwd=str(ROOT),
+                              env={**os.environ,
+                                   "PYTHONPATH": str(ROOT / "src")})
+        seconds = time.perf_counter() - t0
+        steps = sorted(int(d.split("_")[1]) for d in os.listdir(ck)
+                       if d.startswith("step_"))
+    out = proc.stdout.strip().splitlines()
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert any(line.startswith("[elastic] simulating failure")
+               for line in out), proc.stdout
+    assert out and out[-1].startswith("done:"), proc.stdout
+    assert steps == [4, 8], steps
+    return {"cmd": " ".join(cmd[1:4] + cmd[5:]), "seconds": seconds,
+            "device_line": out[0], "done": out[-1], "checkpoints": steps}
+
+
+def phase_train(kernels, names, device, oracle) -> dict:
+    """The training path (``runtime/optim.py``, ``compress.py``,
+    ``steps.make_train_step``, ``data/``, ``distributed/checkpoint.py``,
+    ``launch/train.py``, ``launch/trainer_tenant.py``).  Returns the TMFU
+    launch counts of the co-scheduled drive (K3 on every latency round)."""
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
+    t0 = time.perf_counter()
+    full = train_full(device)
+    assert not full["failures"], full["failures"]
+    smoke = train_smoke(device)
+    cosched, counts = train_tenant(kernels, names, device, oracle)
+    if counts["tmfu_multi_inplace"] <= 0:
+        raise AssertionError("the co-scheduled rounds launched no K3")
+    cli = train_cli()
+    emit({"phase": "train", "seconds": time.perf_counter() - t0,
+          "full": {k: full[k] for k in ("ms_per_step", "tokens_per_s",
+                                        "max_memory_allocated_gb")},
+          "smoke": smoke, "cosched": cosched, "cli": cli,
+          "launches": counts,
+          "tolerances": {"step0_loss_rel": TRAIN_BF16_LOSS_REL,
+                         "step0_grad_cosine": TRAIN_BF16_COSINE,
+                         "smoke_float32_rel_max": SMOKE_F32_REL,
+                         "cosched_vs_standalone": "bit-exact"}})
+    return counts
+
+
 def phase_context_switch(kernels, names, device) -> None:
     """The paper's comparison on the card: ``Overlay.time_context_switch``
     (median of 20 loads, µs) for each benchmark kernel, beside
@@ -1680,6 +2111,7 @@ def main() -> int:
                "fleet": phase_fleet(kernels, names, device, oracle)}
     by_path["edge"] = phase_edge(kernels, names, device, oracle)
     by_path["lm"] = phase_lm(device)
+    by_path["train"] = phase_train(kernels, names, device, oracle)
     phase_context_switch(kernels, names, device)
     for name, rec in records.items():
         rec["launches"] = sum(c[name] for c in by_path.values())

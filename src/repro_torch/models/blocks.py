@@ -8,10 +8,18 @@ PyTorch both are a Python loop over the layers and compute the same
 thing bit for bit:
 
   * ``tm`` (time-multiplexed, default) — the one block body re-issued
-    over the layer stream, indexing the stacked params layer by layer
-    (the reference's ``lax.scan``).
+    over the layer stream (the reference's ``lax.scan``).  Prefill and
+    decode index the stacked params layer by layer; train splits each
+    stacked leaf once (``torch.unbind``: backward stacks the per-layer
+    grads once, where indexing would add a whole-stack zero tensor per
+    layer) and rematerialises each layer in backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+    of the scanned body does: ``remat_policy="full"`` saves nothing,
+    ``"dots"`` saves the 2-D weight products (``aten.mm``, the
+    reference's ``dots_with_no_batch_dims_saveable``).
   * ``spatial`` — the stacked params split into one set per layer first,
-    then every layer applied in turn (the reference's unrolled loop).
+    then every layer applied in turn (the reference's unrolled loop, no
+    remat).
 
 ``shared=True`` blocks (zamba2's shared attention) keep ONE param set that
 is re-applied at every layer — the paper's time-multiplexing taken to the
@@ -21,8 +29,11 @@ weight level.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (AttnDims, Init, apply_rope,
@@ -49,16 +60,19 @@ class StackSpec:
     blocks: tuple[BlockSpec, ...]
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
     """``fn`` over the tensors of a tree of dicts, lists and tuples (a
-    ``None`` is an empty subtree)."""
+    ``None`` is an empty subtree), and over the leaves of ``rest`` at the
+    same keys and indices (trees of the same structure)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -69,6 +83,37 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_leaves_with_path(tree, path: str = "") -> list:
+    """``(path, leaf)`` in ``jax.tree_util``'s order — dict keys sorted,
+    then list / tuple index — with ``path`` spelt as ``jax.tree_util.keystr``
+    spells it (``['stacks'][0][0]['attn']['wq']['w']``).  ``tree_leaves``
+    keeps insertion order; this is the order the reference sums and names
+    leaves in (``global_norm``, checkpoints)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_leaves_with_path(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_leaves_with_path(v, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def tree_map_with_path(fn, tree, path: str = ""):
+    """``fn(path, leaf)`` over a tree (paths as ``tree_leaves_with_path``
+    spells them)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, f"{path}[{i}]")
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
 
 
 def tree_stack(trees):
@@ -254,9 +299,10 @@ def run_stack(cfg, stack: StackSpec, sp, h, positions, *, mode="train",
               memory=None, mem_positions=None, caches=None, pos=None):
     """Apply one stack.  mode: train|prefill|decode.
 
-    Returns (h, aux_sum, new_caches).  In tm mode each layer indexes the
-    stacked leaves; in spatial mode they are split per layer first.
-    Shared-block params are the same tree at every layer.
+    Returns (h, aux_sum, new_caches).  In tm mode prefill and decode
+    index the stacked leaves layer by layer, and train splits them once
+    and rematerialises each layer; in spatial mode they are split per
+    layer first.  Shared-block params are the same tree at every layer.
     """
     tm = getattr(cfg, "scan_layers", True)
     specs = stack.blocks
@@ -283,7 +329,9 @@ def run_stack(cfg, stack: StackSpec, sp, h, positions, *, mode="train",
         return h, aux_total, new_caches
 
     stacked = [None if s.shared else sp[j] for j, s in enumerate(specs)]
-    if tm:
+    if tm and mode == "train":
+        step = _remat(step, getattr(cfg, "remat_policy", "full"))
+    if tm and mode != "train":
         per_layer = [(tree_map(lambda x: x[i], stacked),
                       tree_map(lambda x: x[i], caches))
                      for i in range(stack.count)]
@@ -302,14 +350,40 @@ def run_stack(cfg, stack: StackSpec, sp, h, positions, *, mode="train",
     return h, aux, tree_stack(outs)
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the 2-D weight products
+    (``aten.mm``; attention's einsums are ``aten.bmm`` and recompute)."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(step, policy: str):
+    """``step`` rematerialised in backward under ``policy`` ("dots": the
+    weight products saved; anything else, as in the reference, "full":
+    nothing saved but the layer's inputs).  The model draws no random
+    numbers, so no RNG state is kept."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def body(*args):
+        return checkpoint(step, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return body
+
+
 def _unbind(tree, count):
     """The spatial layout: ``count`` per-layer trees, every stacked leaf
     split by ``torch.unbind`` before any layer runs."""
     split = [torch.unbind(x) for x in tree_leaves(tree)]
-    return [_unflatten(tree, [s[i] for s in split]) for i in range(count)]
+    return [tree_unflatten(tree, [s[i] for s in split])
+            for i in range(count)]
 
 
-def _unflatten(tree, leaves):
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure holding ``leaves`` (``tree_leaves``'
+    order)."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
 

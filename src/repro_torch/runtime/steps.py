@@ -1,11 +1,15 @@
-"""Prefill / decode steps used by the launcher, and the batch decoration
-shared with the training slice."""
+"""Train / prefill / decode steps used by the launchers, and the batch
+decoration they share."""
 
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.models import model as M
+from repro_torch.models.blocks import tree_leaves, tree_unflatten
+from repro_torch.runtime import optim as O
+from repro_torch.runtime.compress import compress_decompress
 
 
 def decorate_batch(cfg, dc, batch, seq_len: int | None = None):
@@ -24,6 +28,52 @@ def decorate_batch(cfg, dc, batch, seq_len: int | None = None):
             (dc.local_batch, seq_len or dc.seq_len, cfg.d_model),
             dtype=torch.bfloat16, device=device)
     return batch
+
+
+def loss_and_grads(cfg, params, batch):
+    """The loss and its gradient tree (``params``' structure), by
+    autograd over the param leaves: the reference's ``value_and_grad``."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = M.loss_fn(cfg, tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def make_train_step(cfg, oc: O.OptConfig, *, compress_grads: bool = False,
+                    mixed: bool = False, donate: bool = False):
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    Loss and gradients (``loss_and_grads``), then the optional int8
+    compression hook (error feedback carried in ``opt_state['ef']``) and
+    AdamW, in the reference's order.  mixed=True: params arrive in bf16
+    and the f32 master lives in opt_state.  donate=True: params and
+    optimizer state are updated in place (``adamw_update_``) and
+    returned — the reference's ``donate_argnums=(0, 1)``; only the
+    latest state is then valid.  metrics: {"loss", "grad_norm", "lr"},
+    0-d float32 tensors.  The update runs inside the profiler range
+    ``train_step.update`` (a profile attributes its kernels by it).
+    """
+    keys = ("m", "v", "master", "count") if mixed else ("m", "v", "count")
+    update = {(False, False): O.adamw_update,
+              (False, True): O.adamw_update_,
+              (True, False): O.adamw_update_mixed,
+              (True, True): O.adamw_update_mixed_}[mixed, donate]
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(cfg, params, batch)
+        if compress_grads:
+            grads, ef = compress_decompress(grads, opt_state.get("ef"))
+            opt_state = dict(opt_state, ef=ef)
+        with record_function("train_step.update"):
+            new_params, new_state, stats = update(
+                oc, grads, {k: opt_state[k] for k in keys}, params)
+        if compress_grads:
+            new_state = dict(new_state, ef=opt_state["ef"])
+        return new_params, new_state, {"loss": loss, **stats}
+
+    return train_step
 
 
 def make_prefill_step(cfg, cache_len=None):

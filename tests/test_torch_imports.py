@@ -156,3 +156,47 @@ def test_fleet_needs_a_card_in_a_fresh_interpreter():
     proc = _run(code, PATH="", CUDA_VISIBLE_DEVICES="")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "raised"
+
+
+#: the training path
+TRAINING = (
+    "repro_torch.runtime.optim", "repro_torch.runtime.compress",
+    "repro_torch.runtime.steps", "repro_torch.data",
+    "repro_torch.data.pipeline", "repro_torch.distributed",
+    "repro_torch.distributed.checkpoint", "repro_torch.launch.train",
+    "repro_torch.launch.trainer_tenant")
+
+
+@pytest.mark.parametrize("module", TRAINING)
+def test_training_modules_stand_alone(module):
+    assert module in MODULES
+    path = ROOT / "src" / Path(*module.split("."))
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def test_training_needs_a_card_in_a_fresh_interpreter():
+    """The training modules import with no GPU and no compiler, pull in
+    neither ``jax`` nor ``repro``, and ``run_training`` with no device
+    raises where no CUDA device is visible (nothing falls back to the
+    CPU)."""
+    code = (
+        "import sys, importlib\n"
+        f"for m in {TRAINING!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.data import DataConfig\n"
+        "from repro_torch.launch.train import run_training\n"
+        "from repro_torch.runtime.optim import OptConfig\n"
+        "cfg = get_smoke_config('deepseek-7b')\n"
+        "try:\n"
+        "    next(run_training(cfg, OptConfig(), DataConfig(2, 8, 256),\n"
+        "                      steps=1))\n"
+        "except RuntimeError as e:\n"
+        "    assert 'no CUDA device' in str(e), e\n"
+        "    print('raised')\n")
+    proc = _run(code, PATH="", CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "raised"

@@ -264,3 +264,58 @@ def random_inputs(n_inputs: int, batch: int, name: str, seed: int):
                 for _ in range(n_inputs)]
     return [rng.uniform(-2, 2, (batch,)).astype(np.float32)
             for _ in range(n_inputs)]
+
+
+# ------------------------------------------------------------ training
+def float32_mode(monkeypatch) -> None:
+    """``COMPUTE_DTYPE`` float32 in both packages' model modules."""
+    import jax.numpy as jnp
+    import torch
+    import repro.models.layers as JL
+    import repro.models.model as JM
+    import repro_torch.models.layers as TL
+    import repro_torch.models.model as TM
+    for mod in (JL, JM):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", jnp.float32)
+    for mod in (TL, TM):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", torch.float32)
+
+
+def leaf_pairs(port_tree, jax_tree):
+    """``(keystr path, port leaf, reference leaf)`` in the reference's
+    order; asserts that both trees have the same paths."""
+    import jax
+    from repro_torch.models.blocks import tree_leaves_with_path
+    jl = jax.tree_util.tree_flatten_with_path(jax_tree)[0]
+    tl = tree_leaves_with_path(port_tree)
+    assert [jax.tree_util.keystr(p) for p, _ in jl] == [p for p, _ in tl]
+    return [(p, t, j) for (p, t), (_, j) in zip(tl, jl)]
+
+
+def as_f32(x) -> np.ndarray:
+    """A port tensor or a JAX array as float32 numpy (bf16 widened)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return x.float().numpy() if x.is_floating_point() else x.numpy()
+    a = np.asarray(x)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def leaf_rel(got, want) -> float:
+    """max |got - want| over max |want| of the leaf (1 where want is 0)."""
+    got, want = as_f32(got).astype(np.float64), as_f32(want).astype(np.float64)
+    scale = np.abs(want).max() if want.size else 0.0
+    return float(np.abs(got - want).max(initial=0.0) / (scale or 1.0))
+
+
+def assert_trees_bitwise(a, b, what: str = "") -> None:
+    """Two port trees: the same paths, every leaf the same dtype, shape
+    and bits."""
+    from repro_torch.models.blocks import tree_leaves_with_path
+    la, lb = tree_leaves_with_path(a), tree_leaves_with_path(b)
+    assert [p for p, _ in la] == [p for p, _ in lb], what
+    for (p, x), (_, y) in zip(la, lb):
+        assert x.dtype == y.dtype, (what, p, x.dtype, y.dtype)
+        np.testing.assert_array_equal(bits(torch_bits(x)), bits(torch_bits(y)),
+                                      err_msg=f"{what}{p}")
