@@ -73,7 +73,9 @@ Phases, each printing one JSON line:
                ``lm_generate`` (B = 4, prompt 32, 16 tokens, seeded weights
                made on the card): deepseek-7b at full depth, mamba2-2.7b at
                full depth, phi3.5-moe-42b-a6.6b at its published widths cut
-               to 2 of its 32 layers.  Each run twice (the second timed;
+               to 2 of its 32 layers, qwen2-moe-a2.7b at full width and
+               depth (60 experts, top-4, 4 shared; 14.3 B params, 57.3 GB
+               of float32 weights).  Each run twice (the second timed;
                MoE: the two bit for bit), then its bfloat16 logits held
                against the port's float32 forward (``COMPUTE_DTYPE``
                float32, TF32 off) at the same positions; prefill and decode
@@ -108,13 +110,32 @@ Phases, each printing one JSON line:
                counters set to 0 before this drive and read after it.
                The CLI with checkpoints and a simulated failure, in a
                subprocess.
+   ``mesh``    the multi-device path on a one-rank NCCL process group and a
+               (data 1, model 1) ``DeviceMesh`` on the card, after the
+               ``train`` phase freed its state: the same deepseek-7b cell,
+               its params and optimizer state wrapped as DTensors by
+               ``reshard_tree`` with no copy, 3 steps of ``run_training``
+               on them; losses and grad norms bit-equal to the ``train``
+               phase's first 3 steps (same seed, same batches); ms a step
+               and peak memory.  Then ``torchrun --standalone
+               --nproc-per-node 1 -m repro_torch.launch.train`` with
+               checkpoints and a simulated failure (re-mesh, restore with
+               the new placements).  Counters set to 0 before, read after.
+   ``examples`` the four ``examples/*_torch.py`` on the card, each in a
+               subprocess with its own timeout, each reporting its kernel
+               launches on a JSON line: quickstart (overlay vs oracle error
+               0), overlay_pipeline (every benchmark kernel's error 0),
+               serve_batch (the LM path's rates) and train_e2e
+               ``--preset 100m`` (200 steps, B 8, S 256: it must print
+               ``LEARNING``; ms a step, tokens/s, peak memory).
 9. ``context_switch``  ``Overlay.time_context_switch`` for the nine
                benchmark kernels on the card (median of 20, µs) beside
                ``time_recompile`` (a fresh ``torch.compile``: dynamo,
                inductor, a Triton kernel) for two of them: the paper's
                context switch against rebuilding the spatial design.
 10. ``kernels`` one line with every kernel's launches (summed over the
-               serve, fleet, edge, lm and train paths, and by path),
+               serve, fleet, edge, lm, train, mesh and examples paths, and
+               by path),
                error, time, plain time and bound; the card's line from
                nvidia-smi; and the verdict as the last line.
 
@@ -1308,7 +1329,7 @@ async def _edge_stats(server):
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 16
 #: full-width runs: (arch, layers kept; None = full depth)
 LM_FULL = (("deepseek-7b", None), ("mamba2-2.7b", None),
-           ("phi3.5-moe-42b-a6.6b", 2))
+           ("phi3.5-moe-42b-a6.6b", 2), ("qwen2-moe-a2.7b", None))
 #: card against the port's CPU path, float32 mode: max|a - b| / max|b|.
 #: Both sides are float32 (TF32 off); summation order and exp / sin / cos
 #: differ, which the CPU tests measure below 3e-6 against JAX.  TF32
@@ -1327,8 +1348,20 @@ SMOKE_F32_REL = 1e-4
 #: them together correlate above 0.99; a MoE token whose top-2 experts
 #: are a near-tie may route differently in the two precisions, so there
 #: 90 % of positions must meet the 10 %.
+#: For a MoE model both forwards route each token to the experts the
+#: decode chose (``moe_routing``): top-k is discontinuous, and a token
+#: whose k-th and (k+1)-th experts are nearer than the two precisions'
+#: router difference swaps one, after which its later layers part;
+#: routed alike, the two precisions differ by rounding alone.  The
+#: routing is then held on its own: at every MoE layer the decode's
+#: router log-probabilities against the float32 forward's on the same
+#: path correlate above ``ROUTER_CC``, and every token whose top-k set
+#: differs from the one float32 picks there is one that the two
+#: precisions' router difference explains (``routing_check``).  The free
+#: forwards' distances are reported beside.
 FULL_REL_L2 = 0.1
 DECODE_VS_FORWARD = 1.25
+ROUTER_CC = 0.99
 
 
 def rel_max(got, want) -> float:
@@ -1371,6 +1404,87 @@ class compute_dtype:
     def __exit__(self, *exc):
         for m, old in zip(self.mods, self.old):
             m.COMPUTE_DTYPE = old
+
+
+class moe_routing:
+    """The MoE's top-k (``layers.lax_top_k``: one call a MoE layer, in
+    layer order) watched inside the block: ``calls`` keeps each call's
+    router probabilities and the ids that the top-k picked from them.
+    With ``force`` (one [T, k] id tensor a call, in call order) the run
+    routes by those ids instead, its gates taken from its own
+    probabilities."""
+
+    def __init__(self, force=None):
+        self.force = force
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers, self.top_k = layers, layers.lax_top_k
+
+        def watched(x, k):
+            vals, idx = self.top_k(x, k)
+            self.calls.append((x.detach(), idx))
+            if self.force is not None:
+                idx = self.force[len(self.calls) - 1]
+                assert idx.shape == (x.shape[0], k), (idx.shape, x.shape)
+                vals = x.gather(-1, idx)
+            return vals, idx
+
+        layers.lax_top_k = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.lax_top_k = self.top_k
+
+
+def moe_routes(calls, runs: int, B: int) -> list:
+    """The (probabilities, ids) a generation routed by, per MoE layer,
+    over [B * positions] rows, b-major: its ``runs`` model calls (the
+    prefill, then one decode step a call) joined along the positions, as
+    a forward over the same tokens meets them."""
+    n = len(calls) // runs
+    assert n * runs == len(calls), (len(calls), runs)
+    out = []
+    for layer in range(n):
+        parts = [calls[s * n + layer] for s in range(runs)]
+        out.append(tuple(
+            torch.cat([x[j].reshape(B, -1, x[j].shape[-1]) for x in parts],
+                      1).flatten(0, 1) for j in (0, 1)))
+    return out
+
+
+def routing_check(routes, calls32) -> dict:
+    """The decode's routing (``moe_routes``) against the float32 forward
+    that was forced to it, layer by layer.  ``flip_share``: tokens whose
+    top-k set differs from the one float32 picks from its own router
+    probabilities at that layer; ``router_cc``: the correlation of the
+    two router log-probabilities.  A flip is explained when float32's
+    k-th probability exceeds the decode's weakest pick (in float32) by at
+    most twice the token's largest log-probability difference between
+    the precisions — what a correct top-k of the bfloat16 probabilities
+    can give; ``unexplained`` counts the others."""
+    layers = []
+    for (p16, d), (p32, f) in zip(routes, calls32):
+        lp16, lp32 = (p.clamp_min(1e-30).log() for p in (p16, p32))
+        flips = (d.sort(-1).values != f.sort(-1).values).any(-1)
+        err = (lp16 - lp32).abs().amax(-1)
+        gap = lp32.gather(-1, f).amin(-1) - lp32.gather(-1, d).amin(-1)
+        unexplained = flips & (gap > 2 * err + 1e-6)
+        cc = float(np.corrcoef(lp16.cpu().numpy().ravel(),
+                               lp32.cpu().numpy().ravel())[0, 1])
+        over = gap[flips] / (2 * err[flips]).clamp_min(1e-30)
+        layers.append({"flip_share": float(flips.float().mean()),
+                       "router_cc": cc,
+                       "router_err_median": float(err.median()),
+                       "flip_gap_over_bound_max":
+                           float(over.max()) if flips.any() else 0.0,
+                       "unexplained": int(unexplained.sum())})
+    return {"tokens": int(routes[0][1].shape[0]), "layers": layers,
+            "flip_share_mean": float(np.mean([r["flip_share"]
+                                              for r in layers])),
+            "router_cc_min": min(r["router_cc"] for r in layers),
+            "unexplained": sum(r["unexplained"] for r in layers)}
 
 
 def smoke_inputs(cfg, dtype, seed=1, B=2, S=17):
@@ -1516,7 +1630,8 @@ def lm_full(arch, layers, device) -> dict:
     """One model at its published widths (depth cut to ``layers`` where
     given) through ``lm_generate``, the CLI's function: twice (the second
     run timed, and for MoE bit-compared with the first), then the float32
-    forward at the same positions."""
+    forward at the same positions (a MoE model's routed as the decode
+    was, the routing then checked against float32's own)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import lm_batch, lm_generate
@@ -1537,7 +1652,8 @@ def lm_full(arch, layers, device) -> dict:
     init_peak = torch.cuda.max_memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
     batch = lm_batch(cfg, LM_BATCH, LM_PROMPT, device)
-    first = lm_generate(cfg, params, batch, LM_GEN, device)
+    with moe_routing() as watched:
+        first = lm_generate(cfg, params, batch, LM_GEN, device)
     run = lm_generate(cfg, params, batch, LM_GEN, device)
     peak = torch.cuda.max_memory_allocated(device)
     profiled = lm_profile(cfg, params, batch, device) \
@@ -1548,20 +1664,29 @@ def lm_full(arch, layers, device) -> dict:
         assert repeat, f"{arch}: two runs differ (the combine must not)"
     # the float32 forward over prompt + generated tokens: position
     # LM_PROMPT - 1 + i predicts generated token i; and the bfloat16
-    # forward over the same tokens, the precision's own distance from it
+    # forward over the same tokens, the precision's own distance from it.
+    # A MoE model's forwards route as the decode did (the first run's
+    # routing: the second repeats it bit for bit)
     seq = torch.cat([batch["tokens"], run.tokens[:, :-1]], 1)
-    with compute_dtype(torch.float32):
+    routes = moe_routes(watched.calls, LM_GEN, LM_BATCH) \
+        if cfg.n_experts else None
+    force = [i for _, i in routes] if routes else None
+    with compute_dtype(torch.float32), moe_routing(force) as forced32:
         ref, _, _ = forward(cfg, params, seq)
     ref = ref[:, LM_PROMPT - 1:].float()
-    fwd_bf16 = forward(cfg, params, seq)[0][:, LM_PROMPT - 1:].float()
+    with moe_routing(force):
+        fwd_bf16 = forward(cfg, params, seq)[0][:, LM_PROMPT - 1:].float()
     got = torch.stack(run.logits, 1).float()
 
-    def rel_l2(a):
-        return ((a - ref).norm(dim=-1) / ref.norm(dim=-1)).flatten()
+    def rel_l2(a, b=ref):
+        return ((a - b).norm(dim=-1) / b.norm(dim=-1)).flatten()
+
+    def corr(a, b=ref):
+        return float(np.corrcoef(a.cpu().numpy().ravel(),
+                                 b.cpu().numpy().ravel())[0, 1])
 
     rel, rel_fwd = rel_l2(got), rel_l2(fwd_bf16)
-    cc = float(np.corrcoef(got.cpu().numpy().ravel(),
-                           ref.cpu().numpy().ravel())[0, 1])
+    cc = corr(got)
     within = float((rel <= FULL_REL_L2).float().mean())
     top1 = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
     need = 0.9 if cfg.n_experts else 1.0
@@ -1573,6 +1698,25 @@ def lm_full(arch, layers, device) -> dict:
         failures.append(f"{arch}: bf16 decode vs float32 forward: {within} "
                         f"of positions within {FULL_REL_L2}, cc {cc}, "
                         f"median {ratio} x the bf16 forward's")
+    routing = free = None
+    if routes:
+        routing = routing_check(routes, forced32.calls)
+        if routing["router_cc_min"] <= ROUTER_CC or routing["unexplained"]:
+            failures.append(f"{arch}: routing: router cc "
+                            f"{routing['router_cc_min']}, "
+                            f"{routing['unexplained']} flips unexplained")
+        # the same distances with every forward routing by itself
+        with compute_dtype(torch.float32):
+            ref_free = forward(cfg, params, seq)[0][:, LM_PROMPT - 1:].float()
+        fwd_free = forward(cfg, params, seq)[0][:, LM_PROMPT - 1:].float()
+        free = {"rel_l2_median": float(rel_l2(got, ref_free).median()),
+                "cc": corr(got, ref_free),
+                "bf16_forward_rel_l2_median":
+                    float(rel_l2(fwd_free, ref_free).median()),
+                "bf16_forward_rel_l2_max":
+                    float(rel_l2(fwd_free, ref_free).max()),
+                "bf16_forward_cc": corr(fwd_free, ref_free)}
+        del ref_free, fwd_free
     step_bytes = 8 * n_params      # f32 read, bf16 cast written and read
     out = {"arch": arch, "layers": cfg.n_layers, "params": n_params,
            "depth_cut": layers is not None, "init_s": t_init,
@@ -1594,12 +1738,14 @@ def lm_full(arch, layers, device) -> dict:
                "bf16_forward_rel_l2_median": float(rel_fwd.median()),
                "bf16_forward_rel_l2_max": float(rel_fwd.max()),
                "median_vs_bf16_forward": ratio,
-               "ratio_bound": DECODE_VS_FORWARD},
+               "ratio_bound": DECODE_VS_FORWARD,
+               "routed_as_decode": routes is not None},
+           "routing": routing, "free_routing": free,
            "repeat_bit_for_bit": repeat, "profile": profiled,
            "sample_ids": run.tokens[0, :12].tolist(),
            "failures": failures}
     emit({"phase": "lm_full", **out})
-    del params, first, run, ref, got, fwd_bf16
+    del params, first, run, ref, got, fwd_bf16, watched, routes, forced32
     torch.cuda.empty_cache()
     return out
 
@@ -1624,7 +1770,8 @@ def phase_lm(device) -> dict:
                          "smoke_bfloat16": "cc > 0.99, top-1 >= 0.95, "
                                            "mismatches near-ties",
                          "full_rel_l2": FULL_REL_L2,
-                         "full_median_vs_bf16_forward": DECODE_VS_FORWARD}})
+                         "full_median_vs_bf16_forward": DECODE_VS_FORWARD,
+                         "full_router_cc": ROUTER_CC}})
     return counts
 
 
@@ -1984,14 +2131,24 @@ def train_tenant(kernels, names, device, oracle):
                                          for k in ("p50", "p99")}}}, counts
 
 
-def train_cli() -> dict:
-    """The CLI in a subprocess: checkpoints every 4 steps, a simulated
-    failure before step 6, the restore, and the end."""
+#: the train CLI with checkpoints, a simulated failure, the re-mesh and
+#: the restore (deepseek-7b smoke)
+CLI_ARGS = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "8",
+            "--ckpt-every", "4", "--simulate-failure-at", "6"]
+#: what starts the CLI: one process (a one-rank group), or torchrun
+ONE_PROCESS = []
+TORCHRUN_ONE_RANK = ["-m", "torch.distributed.run", "--standalone",
+                     "--nproc-per-node", "1"]
+
+
+def train_cli(launcher) -> dict:
+    """The CLI in a subprocess (``launcher``: ``ONE_PROCESS`` or
+    ``TORCHRUN_ONE_RANK``): checkpoints every 4 steps, a simulated failure
+    before step 6, the re-mesh and restore, and the end."""
     import tempfile
     with tempfile.TemporaryDirectory() as ck:
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-               TRAIN_ARCH, "--smoke", "--steps", "8", "--ckpt-dir", ck,
-               "--ckpt-every", "4", "--simulate-failure-at", "6"]
+        cmd = [sys.executable, *launcher, "-m", "repro_torch.launch.train",
+               *CLI_ARGS, "--ckpt-dir", ck]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=600, cwd=str(ROOT),
@@ -2002,19 +2159,26 @@ def train_cli() -> dict:
                        if d.startswith("step_"))
     out = proc.stdout.strip().splitlines()
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert any(line.startswith("[elastic] simulating failure")
-               for line in out), proc.stdout
+    elastic = [line for line in out if line.startswith("[elastic]")]
+    assert any(e.startswith("[elastic] simulating failure")
+               for e in elastic), proc.stdout
+    assert any(e.startswith("[elastic] re-meshed onto")
+               for e in elastic), proc.stdout
     assert out and out[-1].startswith("done:"), proc.stdout
     assert steps == [4, 8], steps
-    return {"cmd": " ".join(cmd[1:4] + cmd[5:]), "seconds": seconds,
-            "device_line": out[0], "done": out[-1], "checkpoints": steps}
+    return {"cmd": " ".join(["python", *launcher, "-m",
+                             "repro_torch.launch.train", *CLI_ARGS]),
+            "seconds": seconds, "mesh_line": out[0], "elastic": elastic,
+            "done": out[-1], "checkpoints": steps}
 
 
 def phase_train(kernels, names, device, oracle) -> dict:
     """The training path (``runtime/optim.py``, ``compress.py``,
     ``steps.make_train_step``, ``data/``, ``distributed/checkpoint.py``,
     ``launch/train.py``, ``launch/trainer_tenant.py``).  Returns the TMFU
-    launch counts of the co-scheduled drive (K3 on every latency round)."""
+    launch counts of the co-scheduled drive (K3 on every latency round),
+    and the full-width run's report (its trace is the ``mesh`` phase's
+    reference)."""
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
     t0 = time.perf_counter()
     full = train_full(device)
@@ -2023,7 +2187,7 @@ def phase_train(kernels, names, device, oracle) -> dict:
     cosched, counts = train_tenant(kernels, names, device, oracle)
     if counts["tmfu_multi_inplace"] <= 0:
         raise AssertionError("the co-scheduled rounds launched no K3")
-    cli = train_cli()
+    cli = train_cli(ONE_PROCESS)
     emit({"phase": "train", "seconds": time.perf_counter() - t0,
           "full": {k: full[k] for k in ("ms_per_step", "tokens_per_s",
                                         "max_memory_allocated_gb")},
@@ -2033,6 +2197,213 @@ def phase_train(kernels, names, device, oracle) -> dict:
                          "step0_grad_cosine": TRAIN_BF16_COSINE,
                          "smoke_float32_rel_max": SMOKE_F32_REL,
                          "cosched_vs_standalone": "bit-exact"}})
+    return counts, full
+
+
+# ------------------------------------------------------ multi-device path
+#: steps of the full-width cell on the one-rank mesh, held bit for bit
+#: against the ``train`` phase's first steps
+MESH_STEPS = 3
+
+
+def mesh_full(device, unsharded) -> dict:
+    """The ``train`` phase's cell on a (1, 1) ``DeviceMesh`` of a one-rank
+    NCCL group: state wrapped as DTensors with no copy, ``MESH_STEPS``
+    steps of ``run_training``; losses and grad norms bit-equal to the
+    unsharded run's.  Then one profiled step and the step's parts timed
+    on DTensors and on plain tensors (``mesh_step_parts``)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.distributed.elastic import remesh, reshard_tree
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import init_params
+    from repro_torch.models.blocks import tree_leaves
+    from repro_torch.runtime import optim as O
+    from repro_torch.runtime import sharding as S
+    from repro_torch.runtime.steps import make_train_step
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=device)
+    try:
+        mesh = remesh([0], model_parallel=1, device_type="cuda")
+        cfg = train_config()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        plain = init_params(cfg, torch.Generator(device).manual_seed(SEED),
+                            device=device)
+        ptrs = [x.data_ptr() for x in tree_leaves(plain)]
+        spec = S.sanitize(S.param_shardings(cfg, mesh), plain, mesh)
+        params = reshard_tree(plain, spec, mesh)
+        del plain
+        no_copy = [x.to_local().data_ptr() for x in tree_leaves(params)] \
+            == ptrs
+        assert no_copy, "reshard_tree copied a leaf on a one-rank mesh"
+        opt_state = O.init_opt(params)
+        oc = O.OptConfig(lr=3e-4, total_steps=max(TRAIN_STEPS, 10),
+                         warmup_steps=max(2, TRAIN_STEPS // 20))
+        dc = DataConfig(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)
+        step = make_train_step(cfg, oc, donate=True)
+        bspec = S.batch_shardings(cfg, mesh, TRAIN_BATCH, "train")
+
+        def placed(params, opt_state, batch):
+            return step(params, opt_state, reshard_tree(
+                batch, {k: bspec[k] for k in batch}, mesh))
+
+        recs = []
+        for rec in run_training(cfg, oc, dc, steps=MESH_STEPS,
+                                corpus=SyntheticCorpus(dc), params=params,
+                                opt_state=opt_state, donate=True,
+                                step_fn=placed):
+            recs.append({k: rec[k] for k in ("step", "loss", "grad_norm",
+                                             "wall_s")})
+            dtensors = all(isinstance(x, DTensor)
+                           for x in tree_leaves(rec["params"]))
+        peak = torch.cuda.max_memory_allocated(device)
+        params, opt_state = rec["params"], rec["opt_state"]
+        del rec
+        batch = SyntheticCorpus(dc).batch(MESH_STEPS)
+        batch["tokens"] = batch["tokens"].to(device)
+        profiled, params, opt_state = train_profile(placed, params,
+                                                    opt_state, batch)
+        parts = mesh_step_parts(cfg, oc, params, opt_state, batch,
+                                lambda b: reshard_tree(
+                                    b, {k: bspec[k] for k in b}, mesh))
+        del params, opt_state
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    want = [(r["loss"], r["grad_norm"]) for r in unsharded["trace"]]
+    got = [(r["loss"], r["grad_norm"]) for r in recs]
+    assert dtensors, "the state left the mesh"
+    assert got == want[:MESH_STEPS], (got, want[:MESH_STEPS])
+    walls = [r["wall_s"] for r in recs]
+    ms = statistics.median(walls[1:]) * 1e3
+    return {"arch": TRAIN_ARCH, "layers": TRAIN_LAYERS,
+            "mesh": S.mesh_axes(mesh), "steps": MESH_STEPS,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "reshard_no_copy": no_copy, "trace": recs,
+            "bit_equal_to_unsharded": True, "ms_per_step": ms,
+            "first_step_ms": walls[0] * 1e3,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+            "max_memory_allocated_gb": peak / 1e9,
+            "profile": profiled, "parts_ms": parts,
+            "unsharded": {k: unsharded[k] for k in (
+                "ms_per_step", "max_memory_allocated_gb")}}
+
+
+def mesh_step_parts(cfg, oc, params, opt_state, batch, place) -> dict:
+    """Where a step on the mesh spends its time: the batch's placement,
+    the loss and gradients (forward, backward, the gradients' placement
+    check), and the in-place AdamW update, each timed with the card
+    synchronised around it — on the DTensor state, and on the same
+    storage as plain tensors (each rank's ``to_local()``: the whole leaf
+    on a one-rank mesh).  Two rounds; the second is kept."""
+    from repro_torch.models.blocks import tree_map
+    from repro_torch.runtime import optim as O
+    from repro_torch.runtime.steps import loss_and_grads
+
+    def local(tree):
+        return tree_map(lambda x: x.to_local(), tree)
+
+    def timed(params, opt_state, batch, place):
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        if place is not None:
+            batch = place(batch)
+        mark()
+        loss, grads = loss_and_grads(cfg, params, batch)
+        float(loss)
+        mark()
+        O.adamw_update_(oc, grads, opt_state, params)
+        mark()
+        del grads
+        names = ("place_batch", "loss_and_grads", "update")
+        return {k: (b - a) * 1e3 for k, a, b in zip(names, marks, marks[1:])}
+
+    plain = (local(params), {"m": local(opt_state["m"]),
+                             "v": local(opt_state["v"]),
+                             "count": opt_state["count"]})
+    out = {}
+    for _ in range(2):
+        out["dtensor"] = timed(params, opt_state, batch, place)
+        out["plain"] = timed(*plain, batch, None)
+    return out
+
+
+def phase_mesh(device, unsharded) -> dict:
+    """The multi-device path (``runtime/sharding.py``,
+    ``distributed/elastic.py``, ``launch/mesh.py``, ``restore(shardings=)``,
+    the CLI's re-mesh) on a one-rank mesh.  Returns the TMFU launch counts
+    of the drive (none)."""
+    from repro_torch.kernels.tmfu import kernel as tk
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
+    t0 = time.perf_counter()
+    tk.reset_launch_counts()
+    full = mesh_full(device, unsharded)
+    counts = dict(tk.launch_counts)          # read right behind the main path
+    cli = train_cli(TORCHRUN_ONE_RANK)
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t0,
+          "full": full, "cli": cli, "launches": counts,
+          "tolerances": {"vs_unsharded": "bit-exact losses and grad norms"}})
+    return counts
+
+
+#: the four port examples: (script, arguments, timeout s)
+EXAMPLES = (("quickstart_torch.py", [], 300),
+            ("overlay_pipeline_torch.py", [], 300),
+            ("serve_batch_torch.py", [], 300),
+            ("train_e2e_torch.py", ["--preset", "100m"], 600))
+
+
+def run_example(script, args, timeout) -> tuple[list, dict]:
+    import tempfile
+    with tempfile.TemporaryDirectory() as ck:
+        if script.startswith("train_e2e"):
+            args = args + ["--ckpt-dir", ck]
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / script),
+                               *args], capture_output=True, text=True,
+                              timeout=timeout, cwd=str(ROOT),
+                              env={**os.environ,
+                                   "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, f"{script}: {proc.stdout}{proc.stderr}"
+    lines = proc.stdout.strip().splitlines()
+    report = json.loads(lines[-1])
+    if "device" in report:
+        assert report["device"].startswith("cuda"), report
+    return lines[:-1], report
+
+
+def phase_examples() -> dict:
+    """The four ``examples/*_torch.py`` on the card, each in a subprocess.
+    Returns their TMFU launch counts, summed (each example sets its
+    counters to 0 before its drive and reports them after it)."""
+    t0 = time.perf_counter()
+    reports, counts = {}, {}
+    for script, args, timeout in EXAMPLES:
+        t1 = time.perf_counter()
+        lines, rep = run_example(script, args, timeout)
+        rep["seconds"] = time.perf_counter() - t1
+        for k, v in rep["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        if script.startswith("serve_batch"):
+            rep["printed"] = [ln for ln in lines if ln.startswith(
+                ("prefill", "decode"))]
+        if script.startswith("train_e2e"):
+            rep["verdict"] = lines[-1]
+        reports[rep.pop("example")] = rep
+    q, o, t = (reports[k] for k in ("quickstart", "overlay_pipeline",
+                                    "train_e2e"))
+    assert q["max_err"] == 0.0, q
+    assert q["launches"]["tmfu_single"] >= 1, q
+    assert set(o["max_err"].values()) == {0.0}, o
+    assert o["launches"]["tmfu_single"] >= len(o["max_err"]), o
+    assert "LEARNING" in t["verdict"], t
+    emit({"phase": "examples", "seconds": time.perf_counter() - t0,
+          "examples": reports, "launches": counts})
     return counts
 
 
@@ -2111,7 +2482,10 @@ def main() -> int:
                "fleet": phase_fleet(kernels, names, device, oracle)}
     by_path["edge"] = phase_edge(kernels, names, device, oracle)
     by_path["lm"] = phase_lm(device)
-    by_path["train"] = phase_train(kernels, names, device, oracle)
+    by_path["train"], unsharded = phase_train(kernels, names, device, oracle)
+    by_path["mesh"] = phase_mesh(device, unsharded)
+    del unsharded
+    by_path["examples"] = phase_examples()
     phase_context_switch(kernels, names, device)
     for name, rec in records.items():
         rec["launches"] = sum(c[name] for c in by_path.values())

@@ -1,5 +1,5 @@
 """Checkpoint/restore with an integrity manifest + async writes, in the
-reference's on-disk format (``distributed/checkpoint.py``), single host.
+reference's on-disk format (``distributed/checkpoint.py``).
 
 Layout:  <dir>/step_<N>/
             manifest.json       step, extra, and per leaf shape, dtype, crc32
@@ -16,8 +16,12 @@ restores in the other, bit for bit: a second weight carrier beside
     corrupts the latest-good checkpoint;
   * async: ``save_async`` snapshots to host memory, then writes on a
     worker thread, so at most one write is in flight;
-  * restore verifies crc32 per leaf.  Restoring onto another mesh
-    (``shardings``) waits for the multi-device slice.
+  * on a mesh, a DTensor leaf is gathered whole on the calling (main)
+    thread — a collective every rank of its mesh joins, never on the
+    writer thread — and rank 0 of the default process group writes;
+  * restore verifies crc32 per leaf and can place each leaf onto a mesh
+    (``shardings``: the elastic-restart path, checkpoint written on mesh
+    A, restored onto mesh B).
 """
 
 from __future__ import annotations
@@ -32,8 +36,10 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch.distributed.elastic import place
 from repro_torch.models.blocks import (tree_leaves_with_path, tree_map,
                                        tree_map_with_path)
+from repro_torch.models.layers import full_value
 
 _SAFE = re.compile(r"[^a-zA-Z0-9_.-]+")
 
@@ -55,9 +61,15 @@ def _flatten(tree):
     return names, [v for _, v in leaves]
 
 
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0, or the only one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _host(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
     """A leaf as the numpy array stored for it, and its logical dtype."""
-    t = leaf.detach().cpu()
+    t = full_value(leaf).detach().cpu()
     logical = str(t.dtype).removeprefix("torch.")
     if logical in _EXOTIC:    # npy can't round-trip bf16/f8 portably
         bits = t.view(_BITS[t.element_size()][0]).numpy()
@@ -97,8 +109,13 @@ class AsyncCheckpointer:
 
     def save_async(self, step: int, tree, extra=None):
         self.wait()   # at most one write in flight
-        # a copy on the host: the caller may update the tree in place
-        host_tree = tree_map(lambda x: x.detach().to("cpu", copy=True), tree)
+        # a copy on the host: the caller may update the tree in place.
+        # Gathering a DTensor is a collective: every rank of its mesh
+        # gathers here, on its own thread, and rank 0 alone writes
+        host_tree = tree_map(
+            lambda x: full_value(x).detach().to("cpu", copy=True), tree)
+        if not _writer():
+            return
 
         def work():
             save(self.ckpt_dir, step, host_tree, extra)
@@ -131,12 +148,20 @@ def list_steps(ckpt_dir: str) -> list[int]:
 
 
 def restore(ckpt_dir: str, tree_like, step: int | None = None,
-            verify: bool = True, device=None):
+            shardings=None, verify: bool = True, *, mesh=None,
+            device=None):
     """Restore into the structure of ``tree_like`` (a tree of tensors,
     the meta device's included: only shapes are read).  Each leaf keeps
     the stored dtype and goes to ``device`` (None: the device of its
     ``tree_like`` leaf, the CPU for a meta leaf).
+
+    ``shardings``: optional tree of ``sharding.Spec`` (or None leaves) on
+    the TARGET ``mesh``: a leaf that has a spec comes back as a DTensor on
+    that mesh, this rank holding its block only — the elastic-restart
+    path.  Every rank of that mesh reads the files.
     Returns (tree, step, extra)."""
+    if shardings is not None and mesh is None:
+        raise ValueError("restore(shardings=...) needs the target mesh")
     steps = list_steps(ckpt_dir)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
@@ -145,6 +170,7 @@ def restore(ckpt_dir: str, tree_like, step: int | None = None,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     _flatten(tree_like)          # the name-collision check
+    shd_of = dict(tree_leaves_with_path(shardings)) if shardings else {}
 
     def load(p, like):
         name = _leaf_name(p)
@@ -160,6 +186,9 @@ def restore(ckpt_dir: str, tree_like, step: int | None = None,
             t = t.view(getattr(torch, meta["dtype"]))
         else:
             t = torch.from_numpy(arr)
+        spec = shd_of.get(p)
+        if spec is not None:    # this rank's block, on the mesh's device
+            return place(t, spec, mesh)
         dev = device if device is not None else getattr(like, "device", None)
         if dev is None or torch.device(dev).type == "meta":
             dev = "cpu"

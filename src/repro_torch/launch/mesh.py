@@ -1,14 +1,74 @@
-"""Serving placement: which device each overlay-serving replica runs on.
+"""Mesh construction: the training meshes and the serving placement.
 
-Functions, not module-level state, so importing never touches CUDA.  The
-devices are ``torch.device``s.  Several replicas may share one device —
-on one GPU every replica does — and each then runs on its own CUDA
-stream (``launch.serve.OverlayServer.stream``).
+Functions, not module-level state, so importing never touches CUDA or a
+process group.
+
+Training: a ``DeviceMesh`` over the ranks of the default process group,
+one rank per GPU.  Single pod: 16x16 = 256 ranks ('data','model').
+Multi-pod: 2 pods x 256 = 512 ranks ('pod','data','model'); the pod axis
+carries only data-parallel traffic.  ``make_mesh_from_devices`` is the
+elastic re-mesh over the surviving ranks.
+
+Serving: the devices are ``torch.device``s.  Several replicas may share
+one device — on one GPU every replica does — and each then runs on its
+own CUDA stream (``launch.serve.OverlayServer.stream``).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def production_mesh_shape(multi_pod: bool = False):
+    """(shape, axis names) of the production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The production ``DeviceMesh`` over the default process group,
+    which must hold exactly 256 ranks (512 with ``multi_pod``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, names = production_mesh_shape(multi_pod)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    need = math.prod(shape)
+    if world != need:
+        raise ValueError(
+            f"the production mesh {dict(zip(names, shape))} needs a world "
+            f"of {need} ranks (one per GPU); this one has {world}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def mesh_from_devices_shape(n: int, model_parallel: int = 16):
+    """(data, model) of the largest mesh over ``n`` survivors: the model
+    axis halves until it divides ``n``."""
+    model = model_parallel
+    while model > 1 and n % model:
+        model //= 2
+    return n // model, model
+
+
+def make_mesh_from_devices(ranks, model_parallel: int = 16,
+                           device_type: str = "cuda"):
+    """Elastic re-mesh: the largest (data, model) ``DeviceMesh`` over the
+    live ``ranks`` of the default process group (the first data x model
+    of them, row-major).  Every rank of the group must call it — a mesh's
+    process groups are made collectively — and it returns the mesh on
+    the ranks the mesh holds, None on the others."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = list(ranks)
+    data, model = mesh_from_devices_shape(len(ranks), model_parallel)
+    grid = torch.tensor(ranks[: data * model]).reshape(data, model)
+    mesh = DeviceMesh(device_type, grid, mesh_dim_names=("data", "model"))
+    return mesh if mesh.get_coordinate() is not None else None
+
 
 #: the sharing key of the CPU, whose ``torch.device`` has no index
 CPU_KEY = -1

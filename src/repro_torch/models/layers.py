@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import sys
 
 import numpy as np
 import torch
@@ -27,6 +28,59 @@ COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30
 #: position given to padded kv slots (never visible to a real query)
 PAD_POS = 2 ** 30
+
+
+#: when True, a DTensor weight is all-gathered (replicated on every mesh
+#: dim) AFTER the bf16 cast and before use — FSDP-style weight gathering
+#: (bf16 on the wire) instead of activation partial sums
+_WEIGHT_GATHER = False
+
+
+def set_weight_gather(on: bool) -> None:
+    """Turn ``maybe_gather``'s weight gathering on or off (the
+    reference's switch of the same name)."""
+    global _WEIGHT_GATHER
+    _WEIGHT_GATHER = bool(on)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (a leaf placed on a mesh).  No DTensor
+    exists before ``torch.distributed.tensor`` is imported, so a process
+    that never places a tensor on a mesh does not pay for the import
+    (about a second)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def full_value(x):
+    """A DTensor's whole value as a plain tensor on every rank; a plain
+    tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def maybe_gather(w):
+    """``w`` replicated on every mesh dim when weight gathering is on and
+    ``w`` is a DTensor; otherwise ``w`` itself."""
+    if _WEIGHT_GATHER and is_dtensor(w):
+        from torch.distributed.tensor import Replicate
+        return w.redistribute(w.device_mesh,
+                              [Replicate()] * w.device_mesh.ndim)
+    return w
+
+
+def whole_dim(x, dim: int):
+    """``x`` with tensor dim ``dim`` whole on every rank: a DTensor's
+    ``Shard(dim)`` placements become ``Replicate()`` (the others stay);
+    a plain tensor is returned as it is.  For the ops DTensor cannot run
+    on a sharded dim (a gather along it)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.ndim
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+          for p in x.placements]
+    return x.redistribute(x.device_mesh, pl) if pl != list(x.placements) \
+        else x
 
 
 # ------------------------------------------------------------------- init
@@ -77,7 +131,7 @@ def init_linear(init: Init, lead, d_in, d_out, scale=None):
 
 
 def linear(p, x):
-    return x @ p["w"].to(x.dtype)
+    return x @ maybe_gather(p["w"].to(x.dtype))
 
 
 def init_norm(init: Init, lead, d):
@@ -354,14 +408,14 @@ def lax_top_k(x, k: int):
 
 def grouped_matmul(xs, w, group_sizes: list[int]):
     """``lax.ragged_dot``: rows of ``xs`` in contiguous groups, group ``e``
-    times ``w[e]``.  One matmul per non-empty group."""
-    out = xs.new_empty((xs.shape[0], w.shape[-1]))
-    off = 0
+    times ``w[e]``.  One matmul per non-empty group, the products joined
+    in group order."""
+    parts, off = [], 0
     for e, n in enumerate(group_sizes):
         if n:
-            out[off:off + n] = xs[off:off + n] @ w[e]
+            parts.append(xs[off:off + n] @ w[e])
         off += n
-    return out
+    return torch.cat(parts)
 
 
 def moe_apply(p, x, *, top_k: int):
@@ -369,16 +423,22 @@ def moe_apply(p, x, *, top_k: int):
     contiguous slice of the sorted tokens.  Returns (out, aux_loss).
 
     The group sizes are read on the host (one device sync per call).  The
-    combine unsorts to [T, k, D] and adds the k weighted outputs in a fixed
-    order, so two runs give the same bits (no float atomics)."""
+    combine unsorts to [T, k, D] and adds each token's k weighted outputs
+    in ascending expert id — the order in which the reference's scatter-add
+    over the expert-sorted rows meets them — starting from zeros, with no
+    float atomics: the same bits as the reference, run after run.
+
+    On DTensors the tokens are gathered whole on every rank first, and the
+    routing's index arithmetic runs on plain tensors."""
     B, S, D = x.shape
     E = p["w_up"].shape[0]
     T = B * S
-    xt = x.reshape(T, D)
+    xt = whole_dim(x.reshape(T, D), 0)
     logits = linear(p["router"], xt).float()                    # [T,E]
     probs = torch.softmax(logits, -1)
     gates, eid = lax_top_k(probs, top_k)                        # [T,k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    eid = full_value(eid)
     # load-balance aux loss (Switch-style)
     density = F.one_hot(eid[:, 0], E).float().mean(0)
     router_prob = probs.mean(0)
@@ -389,16 +449,20 @@ def moe_apply(p, x, *, top_k: int):
     token_of = order // top_k
     xs = xt[token_of]                                           # [T*k, D]
     group_sizes = torch.bincount(flat_e, minlength=E).tolist()
-    up = grouped_matmul(xs, p["w_up"].to(xs.dtype), group_sizes)
-    gate = grouped_matmul(xs, p["w_gate"].to(xs.dtype), group_sizes)
+    up = grouped_matmul(xs, maybe_gather(p["w_up"].to(xs.dtype)),
+                        group_sizes)
+    gate = grouped_matmul(xs, maybe_gather(p["w_gate"].to(xs.dtype)),
+                          group_sizes)
     hidden = up * silu(gate)
-    out_s = grouped_matmul(hidden, p["w_down"].to(xs.dtype),
+    out_s = grouped_matmul(hidden, maybe_gather(p["w_down"].to(xs.dtype)),
                            group_sizes)                         # [T*k, D]
-    # unsort to [T, k, D] and combine with the gate weights, k in order
+    # unsort to [T, k, D], each token's k slots by ascending expert id (a
+    # token's experts are distinct), and combine with the gate weights
     unsort = torch.empty_like(order)
     unsort[order] = torch.arange(order.numel(), device=order.device)
-    out_tk = out_s[unsort].reshape(T, top_k, D)
-    w = gates.to(out_s.dtype)
+    by_e = eid.argsort(-1)
+    out_tk = out_s[unsort.reshape(T, top_k).gather(1, by_e)]    # [T,k,D]
+    w = gates.gather(1, by_e).to(out_s.dtype)
     combined = torch.zeros((T, D), dtype=out_s.dtype, device=x.device)
     for j in range(top_k):
         combined = combined + out_tk[:, j] * w[:, j, None]

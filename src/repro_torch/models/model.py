@@ -22,7 +22,8 @@ import torch
 from repro_torch.core.vm import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.blocks import BlockSpec, StackSpec
-from repro_torch.models.layers import COMPUTE_DTYPE, Init, init_norm, rms_norm
+from repro_torch.models.layers import (COMPUTE_DTYPE, Init, init_norm,
+                                       maybe_gather, rms_norm, whole_dim)
 from repro_torch.models.ssm import SSMDims
 
 
@@ -230,7 +231,7 @@ def forward(cfg: ModelConfig, params, tokens, *, extra_embeds=None,
         aux_total = aux_total + aux
         new_caches.append(c)
     h = rms_norm(params["final_norm"], h)
-    logits = h @ params["head"].to(h.dtype)
+    logits = h @ maybe_gather(params["head"].to(h.dtype))
     return logits, aux_total, new_caches
 
 
@@ -243,7 +244,8 @@ def loss_fn(cfg, params, batch):
         frame_embeds=batch.get("frame_embeds"), mode="train")
     # targets align with the text positions (vision prefix emits no loss)
     tgt = tokens[:, 1:]
-    logits = logits[:, -tgt.shape[1]:].float()
+    # a vocab-sharded DTensor is gathered along the vocab first
+    logits = whole_dim(logits[:, -tgt.shape[1]:].float(), -1)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, tgt[..., None].long())[..., 0]
     nll = (logz - gold).mean()
@@ -295,5 +297,5 @@ def decode_step(cfg, params, caches, token, pos):
                               caches=caches[i], pos=pos)
         new_caches.append(c)
     h = rms_norm(params["final_norm"], h)
-    logits = (h @ params["head"].to(h.dtype))[:, 0]
+    logits = (h @ maybe_gather(params["head"].to(h.dtype)))[:, 0]
     return logits, new_caches

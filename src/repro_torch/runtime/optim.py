@@ -11,6 +11,11 @@ params and moments at once.  ``adamw_update_`` is the same arithmetic in
 place, one leaf (and one slice of a large leaf) at a time, for a run whose
 state fills the card — what the reference gets from donating params and
 optimizer state to its jitted step.  The two agree bit for bit.
+
+On a mesh, params, gradients and moments are DTensors of the same
+placements: ``global_norm``'s sums of squares are all-reduced by DTensor,
+and ``adamw_update_`` updates each rank's local shards (elementwise, so
+the same bits as the whole tensor would get).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import math
 import torch
 
 from repro_torch.models.blocks import tree_leaves_with_path, tree_map
+from repro_torch.models.layers import full_value, is_dtensor
 
 #: elements of one leaf updated together in place: bounds the float32
 #: temporaries of ``adamw_update_`` to a few of these (256 MB each)
@@ -52,6 +58,11 @@ def _leaves(tree) -> list:
     return [x for _, x in tree_leaves_with_path(tree)]
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (its storage); a plain tensor."""
+    return x.to_local() if is_dtensor(x) else x
+
+
 def _count(params) -> torch.Tensor:
     device = _leaves(params)[0].device
     return torch.zeros((), dtype=torch.int32, device=device)
@@ -81,7 +92,7 @@ def _prologue(oc: OptConfig, grads, count):
     """The step's scalars: (count + 1, lr, grad norm, clip scale, bc1, bc2)."""
     count = count + 1
     lr = schedule(oc, count)
-    gnorm = global_norm(grads)
+    gnorm = full_value(global_norm(grads))
     scale = torch.clamp_max(torch.full_like(gnorm, oc.grad_clip)
                             / (gnorm + 1e-9), 1.0)
     c = count.to(torch.float32)
@@ -116,8 +127,8 @@ def adamw_update_(oc: OptConfig, grads, state, params):
     state["count"].copy_(count)
     b1, b2 = oc.b1, oc.b2
     with torch.no_grad():
-        for g, m_, v_, p in zip(_leaves(grads), _leaves(state["m"]),
-                                _leaves(state["v"]), _leaves(params)):
+        for g, m_, v_, p in zip(*(map(_local, _leaves(t)) for t in (
+                grads, state["m"], state["v"], params))):
             for gc, mc, vc, pc in zip(g.reshape(-1).split(CHUNK),
                                       *(x.view(-1).split(CHUNK)
                                         for x in (m_, v_, p))):

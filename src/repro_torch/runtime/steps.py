@@ -3,11 +3,14 @@ decoration they share."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch.profiler import record_function
 
 from repro_torch.models import model as M
 from repro_torch.models.blocks import tree_leaves, tree_unflatten
+from repro_torch.models.layers import full_value, is_dtensor
 from repro_torch.runtime import optim as O
 from repro_torch.runtime.compress import compress_decompress
 
@@ -30,15 +33,34 @@ def decorate_batch(cfg, dc, batch, seq_len: int | None = None):
     return batch
 
 
+def _dtensor_mode(sharded: bool):
+    """For DTensor params, DTensor's implicit replication: the plain
+    tensors the model makes (positions, masks, zeros) then count as
+    replicated on the params' mesh.  Otherwise nothing."""
+    if sharded:
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
 def loss_and_grads(cfg, params, batch):
     """The loss and its gradient tree (``params``' structure), by
-    autograd over the param leaves: the reference's ``value_and_grad``."""
+    autograd over the param leaves: the reference's ``value_and_grad``.
+
+    Params may be DTensors on a mesh (the batch then too): the loss comes
+    back as a plain tensor, each gradient with its param's placements."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    with torch.enable_grad():
+    sharded = is_dtensor(leaves[0])
+    with torch.enable_grad(), _dtensor_mode(sharded):
         loss = M.loss_fn(cfg, tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-    return loss.detach(), tree_unflatten(params, list(grads))
+    if sharded:     # a Partial gradient is reduced onto its param's shards
+        grads = [g if g.placements == p.placements
+                 else g.redistribute(p.device_mesh, p.placements)
+                 for g, p in zip(grads, leaves)]
+    return full_value(loss.detach()), tree_unflatten(params, list(grads))
 
 
 def make_train_step(cfg, oc: O.OptConfig, *, compress_grads: bool = False,

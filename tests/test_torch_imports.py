@@ -1,7 +1,8 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` nor
-``chip_smoke.py`` imports ``jax``, ``ml_dtypes`` or the JAX package
-``repro``; the package imports where there is no ``triton`` and no ``nvcc``
-and builds nothing on import."""
+"""The port stands alone: nothing under ``src/repro_torch/``, in
+``chip_smoke.py`` or in the port's examples (``examples/*_torch.py``)
+imports ``jax``, ``ml_dtypes`` or the JAX package ``repro``; the package
+imports where there is no ``triton`` and no ``nvcc`` and builds nothing on
+import."""
 
 import ast
 import os
@@ -14,7 +15,9 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro", "flax", "optax")
-SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+    + EXAMPLES
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__") for p in PACKAGE.rglob("*.py"))
@@ -200,3 +203,49 @@ def test_training_needs_a_card_in_a_fresh_interpreter():
     proc = _run(code, PATH="", CUDA_VISIBLE_DEVICES="")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "raised"
+
+
+#: the multi-device training path and the test helper
+MULTI_DEVICE = (
+    "repro_torch.runtime.sharding", "repro_torch.distributed.elastic",
+    "repro_torch.launch.mesh", "repro_torch.testing",
+    "repro_torch.models.layers", "repro_torch.distributed.checkpoint",
+    "repro_torch.launch.train")
+
+
+@pytest.mark.parametrize("module", MULTI_DEVICE)
+def test_multi_device_modules_stand_alone(module):
+    assert module in MODULES
+    path = ROOT / "src" / Path(*module.split("."))
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def test_examples_exist_beside_the_references():
+    """The four examples ported, each beside its reference example."""
+    names = [p.name for p in EXAMPLES]
+    assert names == ["overlay_pipeline_torch.py", "quickstart_torch.py",
+                     "serve_batch_torch.py", "train_e2e_torch.py"]
+    for p in EXAMPLES:
+        assert (p.parent / p.name.replace("_torch", "")).is_file()
+
+
+def test_multi_device_modules_import_without_a_process_group():
+    """Importing them pulls in neither ``jax`` nor ``repro``, starts no
+    process group, and the spec rules run on a ``(names, sizes)`` mesh."""
+    code = (
+        "import sys, importlib\n"
+        f"for m in {MULTI_DEVICE!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.runtime import sharding as S\n"
+        "spec = S.param_shardings(get_config('deepseek-7b'),\n"
+        "                         (('data', 'model'), (16, 16)))\n"
+        "print(spec['head'])\n")
+    proc = _run(code, PATH="", CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "Spec('data', 'model')"
