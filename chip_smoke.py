@@ -128,14 +128,40 @@ Phases, each printing one JSON line:
                serve_batch (the LM path's rates) and train_e2e
                ``--preset 100m`` (200 steps, B 8, S 256: it must print
                ``LEARNING``; ms a step, tokens/s, peak memory).
+   ``pipeline`` the microbatch ring (``runtime/pipeline.py``): deepseek-7b
+               at its published widths and full depth (30 layers), five
+               stages of six layers, one gloo rank a stage on the card
+               (``torch.multiprocessing``; the link staged through host
+               memory), M = 8 microbatches of 1 x 128 tokens; every rank's
+               ``y`` bit-equal to ``pipeline_reference`` of the whole model
+               run by this process; ms a slot, stage compute and link ms,
+               bytes a hop, peak memory a rank, ``pipeline_ii(8, 5)``.  The
+               S = 1 ring on a one-rank NCCL group (no send; the final
+               all-reduce on NCCL), bit-equal to its reference.  Then
+               ``examples/pipeline_lm_torch.py`` in a subprocess.
+   ``dryrun``  the dry run (``launch/dryrun.py``): the estimator on the
+               ``train`` phase's cell (plain tensors, and a (1, 1) mesh on
+               a fake process group) held against this run's
+               measurements: peak memory within 10 % of the ``train`` and
+               ``mesh`` phases' ``max_memory_allocated``, FLOPs within 15 %
+               of ``train_step_work``; then ``python -m
+               repro_torch.launch.dryrun`` in a subprocess for deepseek-7b x
+               train_4k and x prefill_32k and qwen2-moe-a2.7b x decode_32k
+               on the single-pod (16, 16) mesh: records without ``error``;
+               train_4k's analytic / traced FLOPs a device inside the
+               reference's own (0.6, 1.7) and its arguments within 1 % of
+               the sharding rule's layout; the roofline terms,
+               bottleneck, useful-FLOPs ratio and collectives.
+               Both paths launch no TMFU kernel: counters set to 0 before,
+               read after.
 9. ``context_switch``  ``Overlay.time_context_switch`` for the nine
                benchmark kernels on the card (median of 20, µs) beside
                ``time_recompile`` (a fresh ``torch.compile``: dynamo,
                inductor, a Triton kernel) for two of them: the paper's
                context switch against rebuilding the spatial design.
 10. ``kernels`` one line with every kernel's launches (summed over the
-               serve, fleet, edge, lm, train, mesh and examples paths, and
-               by path),
+               serve, fleet, edge, lm, train, mesh, examples, pipeline and
+               dryrun paths, and by path),
                error, time, plain time and bound; the card's line from
                nvidia-smi; and the verdict as the last line.
 
@@ -2338,7 +2364,7 @@ def phase_mesh(device, unsharded) -> dict:
     """The multi-device path (``runtime/sharding.py``,
     ``distributed/elastic.py``, ``launch/mesh.py``, ``restore(shardings=)``,
     the CLI's re-mesh) on a one-rank mesh.  Returns the TMFU launch counts
-    of the drive (none)."""
+    of the drive (none) and the full-width run's report."""
     from repro_torch.kernels.tmfu import kernel as tk
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
     t0 = time.perf_counter()
@@ -2349,7 +2375,7 @@ def phase_mesh(device, unsharded) -> dict:
     emit({"phase": "mesh", "seconds": time.perf_counter() - t0,
           "full": full, "cli": cli, "launches": counts,
           "tolerances": {"vs_unsharded": "bit-exact losses and grad norms"}})
-    return counts
+    return counts, full
 
 
 #: the four port examples: (script, arguments, timeout s)
@@ -2404,6 +2430,411 @@ def phase_examples() -> dict:
     assert "LEARNING" in t["verdict"], t
     emit({"phase": "examples", "seconds": time.perf_counter() - t0,
           "examples": reports, "launches": counts})
+    return counts
+
+
+# ------------------------------------------------------ the pipeline ring
+#: deepseek-7b at its published widths and full depth (30 layers) over five
+#: stages of six; M microbatches of 1 x PIPE_SEQ tokens, bfloat16 hidden
+#: states
+PIPE_ARCH, PIPE_STAGES, PIPE_M, PIPE_SEQ = "deepseek-7b", 5, 8, 128
+
+
+def pipe_stage_cfg():
+    """deepseek-7b's config with one stage's six layers: (cfg, stack)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(PIPE_ARCH)
+    (stack,) = cfg.stacks
+    assert stack.count % PIPE_STAGES == 0, stack.count
+    stack = dataclasses.replace(stack, count=stack.count // PIPE_STAGES)
+    return dataclasses.replace(cfg, stacks=(stack,)), stack
+
+
+def pipe_stage_params(s, device):
+    """Stage ``s``'s six layers, drawn on the card from seed SEED + 100 + s:
+    the stack's tree, leaves [6, ...]."""
+    from repro_torch.models.blocks import init_stack
+    from repro_torch.models.layers import Init
+    cfg, stack = pipe_stage_cfg()
+    g = torch.Generator(device).manual_seed(SEED + 100 + s)
+    return init_stack(Init.torch(g, device), cfg, stack)
+
+
+def pipe_stage_fn(p, h):
+    """One stage: its six decoder layers through ``blocks.block_apply``.
+    ``p``: the stack's tree with leaves [6, ...]."""
+    from repro_torch.models.blocks import block_apply, tree_map
+    cfg, stack = pipe_stage_cfg()
+    (spec,) = stack.blocks
+    pos = torch.arange(h.shape[1], device=h.device)[None].expand(
+        h.shape[:2])
+    with torch.no_grad():
+        for i in range(stack.count):
+            h, _ = block_apply(cfg, spec, tree_map(lambda x: x[i], p[0]), h,
+                               pos)
+    return h
+
+
+class TimedStage:
+    """``pipe_stage_fn`` timed from outside the ring: each call's compute
+    (the device synchronised before and after it), the slot (one call's
+    start to the next's) and the link (one call's end to the next's
+    start: the hop and the slot's bookkeeping).  ``end`` is the last
+    call's end, from which the caller times the ring's tail: the last
+    hop and the final all-reduce."""
+
+    def __init__(self, device):
+        self.device = device
+        self.compute_ms, self.slot_ms, self.link_ms = [], [], []
+        self.start = self.end = None
+
+    def __call__(self, p, h):
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        if self.end is not None:
+            self.slot_ms.append((t0 - self.start) * 1e3)
+            self.link_ms.append((t0 - self.end) * 1e3)
+        out = pipe_stage_fn(p, h)
+        torch.cuda.synchronize(self.device)
+        self.start, self.end = t0, time.perf_counter()
+        self.compute_ms.append((self.end - t0) * 1e3)
+        return out
+
+    def report(self, returned: float) -> dict:
+        """The timings, the tail measured up to ``returned`` (the ring's
+        return, the device synchronised)."""
+        return {"compute_ms": self.compute_ms, "slot_ms": self.slot_ms,
+                "link_ms": self.link_ms,
+                "tail_ms": (returned - self.end) * 1e3}
+
+
+def pipe_microbatches(device):
+    g = torch.Generator(device).manual_seed(SEED + 7)
+    cfg, _ = pipe_stage_cfg()
+    return torch.randn((PIPE_M, 1, PIPE_SEQ, cfg.d_model), generator=g,
+                       device=device).to(torch.bfloat16)
+
+
+def pipeline_rank(rank, port, outdir):
+    """One of the PIPE_STAGES gloo ranks on the card (``mp.spawn``): its
+    stage's params, the ring, what it returned and what it measured."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.kernels.tmfu import kernel as tk
+    from repro_torch.models.blocks import tree_map
+    from repro_torch.runtime import pipeline as P
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=PIPE_STAGES)
+    try:
+        mesh = DeviceMesh("cuda", list(range(PIPE_STAGES)),
+                          mesh_dim_names=("stage",))
+        own = pipe_stage_params(rank, device)
+        params = tree_map(lambda x: DTensor.from_local(
+            x[None], mesh, [Shard(0)], run_check=False), own)
+        x = pipe_microbatches(device)
+        torch.cuda.synchronize()
+        dist.barrier()
+        tk.reset_launch_counts()
+        P.reset_link_counts()
+        timed = TimedStage(device)
+        t0 = time.perf_counter()
+        y = P.pipeline_apply(mesh, timed, params, x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.save({"y": y.cpu(), "stats": timed.report(t1),
+                    "wall_s": t1 - t0,
+                    "link": dict(P.link_counts),
+                    "launches": dict(tk.launch_counts),
+                    "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9},
+                   os.path.join(outdir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def pipeline_full(device) -> dict:
+    """deepseek-7b's 30 layers as five gloo ranks of six layers on the
+    card (host-staged link), every rank's ``y`` against
+    ``pipeline_reference`` of the whole model in this process, bit for bit;
+    then the S = 1 ring on a one-rank NCCL group."""
+    import socket
+    import tempfile
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.kernels.tmfu import kernel as tk
+    from repro_torch.models.blocks import tree_map, tree_stack
+    from repro_torch.runtime import pipeline as P
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        mp.spawn(pipeline_rank, args=(port, out), nprocs=PIPE_STAGES,
+                 join=True)
+        ring_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"))
+                 for r in range(PIPE_STAGES)]
+    tk.reset_launch_counts()
+    counts = dict(tk.launch_counts)
+    for r in ranks:
+        for k, v in r["launches"].items():
+            counts[k] += v
+    torch.cuda.reset_peak_memory_stats(device)
+    x = pipe_microbatches(device)
+    whole = tree_stack([pipe_stage_params(s, device)
+                        for s in range(PIPE_STAGES)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = P.pipeline_reference(pipe_stage_fn, whole, x)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    ref_cpu = ref.cpu()
+    for r, got in enumerate(ranks):
+        assert torch.equal(got["y"], ref_cpu), \
+            f"rank {r}: max |y - ref| {(got['y'].float() - ref_cpu.float()).abs().max()}"
+        assert got["link"]["staged_hops"] == PIPE_M + PIPE_STAGES - 1 \
+            and got["link"]["staged_reduces"] == 1, got["link"]
+    # S = 1 on a one-rank NCCL group: no send, the final all-reduce on NCCL
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=device)
+    try:
+        mesh = DeviceMesh("cuda", [0], mesh_dim_names=("stage",))
+        one = tree_map(lambda w: w[:1], whole)
+        P.reset_link_counts()
+        timed1 = TimedStage(device)
+        y1 = P.pipeline_apply(mesh, timed1, one, x)
+        torch.cuda.synchronize()
+        stats1 = timed1.report(time.perf_counter())
+        link1 = dict(P.link_counts)
+        ref1 = P.pipeline_reference(pipe_stage_fn, one, x)
+        assert torch.equal(y1, ref1), "S = 1 ring != its reference"
+        assert link1["hops"] == 0 and link1["reduces"] == 1 \
+            and link1["staged_reduces"] == 0, link1
+    finally:
+        dist.destroy_process_group()
+    for k, v in tk.launch_counts.items():
+        counts[k] += v
+    del whole, one, ref, y1, ref1
+    torch.cuda.empty_cache()
+    cfg, stack = pipe_stage_cfg()
+    per_rank = [{"slot_ms": r["stats"]["slot_ms"],
+                 "compute_ms": r["stats"]["compute_ms"],
+                 "link_ms": r["stats"]["link_ms"],
+                 "tail_ms": r["stats"]["tail_ms"],
+                 "wall_s": r["wall_s"], "peak_gb": r["peak_gb"],
+                 "link": r["link"]} for r in ranks]
+    hop_bytes = PIPE_SEQ * cfg.d_model * 2
+    return {"arch": PIPE_ARCH, "stages": PIPE_STAGES,
+            "layers_per_stage": stack.count, "microbatches": PIPE_M,
+            "tokens_per_microbatch": PIPE_SEQ,
+            "ii": P.pipeline_ii(PIPE_M, PIPE_STAGES),
+            "bit_equal_to_reference": True, "ring_s": ring_s,
+            "ms_per_slot_median": statistics.median(
+                m for r in per_rank for m in r["slot_ms"]),
+            "stage_compute_ms_median": statistics.median(
+                m for r in per_rank for m in r["compute_ms"]),
+            "link_ms_median": statistics.median(
+                m for r in per_rank for m in r["link_ms"]),
+            "bytes_per_hop": hop_bytes, "ranks": per_rank,
+            "reference": {"seconds": ref_s, "peak_gb": ref_peak},
+            "s1_nccl": {"bit_equal": True, "link": link1,
+                        "slot_ms": stats1["slot_ms"],
+                        "tail_ms": stats1["tail_ms"]},
+            "launches": counts}
+
+
+def phase_pipeline(device) -> dict:
+    """The microbatch ring (``runtime/pipeline.py``): deepseek-7b over five
+    gloo ranks on the card, the S = 1 NCCL ring, and
+    ``examples/pipeline_lm_torch.py``.  Returns the TMFU launch counts
+    (none)."""
+    t0 = time.perf_counter()
+    full = pipeline_full(device)
+    counts = full.pop("launches")
+    t1 = time.perf_counter()
+    lines, ex = run_example("pipeline_lm_torch.py", [], 300)
+    ex["seconds"] = time.perf_counter() - t1
+    ex["printed"] = lines
+    assert ex["max_err"] < 5e-4 and ex["every_rank_same_y"], ex
+    assert ex["link"]["staged_hops"] == ex["ii"]["slots"], ex
+    assert sum(ex["launches"].values()) == 0, ex
+    for k, v in ex["launches"].items():
+        counts[k] += v
+    emit({"phase": "pipeline", "seconds": time.perf_counter() - t0,
+          "full": full, "example": ex, "launches": counts,
+          "tolerances": {"ring_vs_reference": "bit-exact, every rank",
+                         "example_max_err": 5e-4}})
+    return counts
+
+
+# --------------------------------------------------------------- dry run
+#: the estimator against this run's measurements: peak memory within 10 %,
+#: FLOPs within 15 %
+DRY_MEM_REL, DRY_FLOPS_REL = 0.10, 0.15
+#: production cells traced by ``python -m repro_torch.launch.dryrun``
+DRY_CELLS = (("deepseek-7b", "train_4k"), ("deepseek-7b", "prefill_32k"),
+             ("qwen2-moe-a2.7b", "decode_32k"))
+#: the reference's own cross-check of the train_4k cell
+#: (``tests/test_dryrun_unit.py::test_analytic_vs_spatial_dryrun_crosscheck``):
+#: analytic FLOPs a device over the traced ones, strictly inside
+DRY_ANALYTIC_RATIO = (0.6, 1.7)
+#: the train_4k cell's arguments a device against the sharding rule's
+#: layout of params, m and v (12 B a param), relative
+DRY_ARG_REL = 0.01
+
+
+def analytic_train_flops(cfg, seq: int, gbatch: int, chips: int) -> float:
+    """FLOPs a device of a dense attention model's train step at ``gbatch``
+    x ``seq`` on ``chips`` devices: a copy of the reference's closed form
+    (``benchmarks/analytic.py``: ``cell_model(...).flops_dev``, remat
+    "full") — the forward a token (q/k/v/o projections, attention over
+    the causal average of ``seq / 2`` keys, the gated MLP, the head) x
+    (seq - 1) tokens a row x 4 (forward, recompute, backward twice)."""
+    D, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    block = 2 * D * (H + 2 * KH) * hd + 2 * H * hd * D \
+        + 4 * H * hd * seq / 2 + 6 * D * cfg.d_ff
+    layers = sum(st.count * len(st.blocks) for st in cfg.stacks)
+    fwd = layers * block + 2 * D * cfg.vocab
+    return fwd * gbatch * (seq - 1) * 4 / chips
+
+
+def dry_train_checks(rec) -> dict:
+    """deepseek-7b x train_4k on the (16, 16) mesh against what does not
+    come from the tracer: the analytic FLOPs (the reference's bound), and
+    the arguments against the rule's layout — 12 B a param (params, m, v
+    in float32) split 256 ways, but the embedding's 16 (``embed`` is
+    vocab-split over ``model`` alone, in the reference's rule too)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import init_params
+    cfg = get_config("deepseek-7b")
+    seq, gbatch, _ = SHAPES["train_4k"]
+    chips = rec["roofline"]["chips"]
+    shapes = init_params(cfg, device="meta")
+    P, P_embed = cfg.param_count(), shapes["embed"].numel()
+    want_args = ((P - P_embed) * 12 / chips
+                 + P_embed * 12 / (chips // 16))
+    flops = rec["roofline"]["hlo_flops_per_device"]
+    analytic = analytic_train_flops(cfg, seq, gbatch, chips)
+    args = rec["memory"]["argument_size_in_bytes"]
+    return {"analytic_over_traced": {
+                "analytic": analytic, "traced": flops,
+                "ratio": analytic / flops, "bounds": DRY_ANALYTIC_RATIO},
+            "arguments": {"traced": args, "rule": want_args,
+                          "rel": args / want_args - 1,
+                          "bound": DRY_ARG_REL}}
+
+
+def dry_train_cell(mesh) -> dict:
+    """The estimator on the ``train`` phase's cell (plain tensors, or a
+    mesh): peak (arguments + temp) and FLOPs."""
+    from repro_torch.launch import dryrun as D
+    cfg = train_config()
+    batch = {"tokens": torch.empty((TRAIN_BATCH, TRAIN_SEQ),
+                                   dtype=torch.int32, device="meta")}
+    traced, _, t_trace = D.trace_step(cfg, batch, "train", TRAIN_SEQ,
+                                      TRAIN_BATCH, mesh)
+    mem = traced.memory_analysis()
+    return {"peak_gb": (mem["argument_size_in_bytes"]
+                        + mem["temp_size_in_bytes"]) / 1e9,
+            "argument_gb": mem["argument_size_in_bytes"] / 1e9,
+            "temp_gb": mem["temp_size_in_bytes"] / 1e9,
+            "flops": traced.flops, "bytes_accessed": traced.bytes_accessed,
+            "collectives": len(traced.collectives), "trace_s": t_trace}
+
+
+def phase_dryrun(unsharded, meshed) -> dict:
+    """The dry run (``launch/dryrun.py``): the estimator held against what
+    this run measured (the ``train`` phase's peak and its step's FLOPs;
+    the ``mesh`` phase's peak on a (1, 1) mesh), then three production
+    cells through the CLI in a subprocess, train_4k held to the analytic
+    FLOPs and the rule's argument bytes.  Host-side tracing: returns the
+    TMFU launch counts (none)."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.kernels.tmfu import kernel as tk
+    from repro_torch.launch import dryrun as D
+    t0 = time.perf_counter()
+    tk.reset_launch_counts()
+    failures = []
+    work = train_step_work(train_config(), TRAIN_BATCH, TRAIN_SEQ)
+    plain = dry_train_cell(None)
+    D.fake_world(1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        on_mesh = dry_train_cell(mesh)
+    finally:
+        dist.destroy_process_group()
+    checks = {}
+    for name, est, want in (
+            ("plain_peak", plain["peak_gb"],
+             unsharded["max_memory_allocated_gb"]),
+            ("plain_flops", plain["flops"], work["flops"]),
+            ("mesh_peak", on_mesh["peak_gb"],
+             meshed["max_memory_allocated_gb"])):
+        rel = est / want - 1
+        bound = DRY_FLOPS_REL if name.endswith("flops") else DRY_MEM_REL
+        checks[name] = {"estimate": est, "measured": want, "rel": rel,
+                        "bound": bound}
+        if abs(rel) > bound:
+            failures.append(f"{name}: estimate {est} vs {want} ({rel:+.3f})")
+    cells = {}
+    with tempfile.TemporaryDirectory() as out:
+        for arch, shape in DRY_CELLS:
+            t1 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", "single",
+                 "--out", out], capture_output=True, text=True, timeout=600,
+                cwd=str(ROOT), env={**os.environ,
+                                    "PYTHONPATH": str(ROOT / "src")})
+            with open(os.path.join(out, f"{arch}_{shape}_single.json")) as f:
+                rec = json.load(f)
+            if proc.returncode != 0 or "error" in rec:
+                failures.append(f"{arch} x {shape}: rc {proc.returncode} "
+                                f"{rec.get('error')} {proc.stderr[-2000:]}")
+                continue
+            roof = rec["roofline"]
+            if (arch, shape) == ("deepseek-7b", "train_4k"):
+                checks["train_4k"] = dry_train_checks(rec)
+                lo, hi = DRY_ANALYTIC_RATIO
+                ratio = checks["train_4k"]["analytic_over_traced"]["ratio"]
+                rel = checks["train_4k"]["arguments"]["rel"]
+                if not lo < ratio < hi:
+                    failures.append(f"train_4k analytic / traced FLOPs "
+                                    f"{ratio:.3f} outside ({lo}, {hi})")
+                if abs(rel) > DRY_ARG_REL:
+                    failures.append(f"train_4k arguments {rel:+.4f} off "
+                                    f"the rule's layout")
+            cells[f"{arch} x {shape}"] = {
+                "seconds": time.perf_counter() - t1,
+                "printed": [ln for ln in proc.stdout.splitlines()
+                            if ln.startswith("[")],
+                "t_compute_s": roof["t_compute_s"],
+                "t_memory_s": roof["t_memory_s"],
+                "t_collective_s": roof["t_collective_s"],
+                "hlo_flops_per_device": roof["hlo_flops_per_device"],
+                "collective_wire_bytes_per_device":
+                    roof["collective_wire_bytes_per_device"],
+                "bottleneck": roof["bottleneck"],
+                "useful_flops_ratio": roof["useful_flops_ratio"],
+                "collectives": rec["collectives"], "memory": rec["memory"],
+                "timing": rec["timing"]}
+    counts = dict(tk.launch_counts)
+    emit({"phase": "dryrun", "seconds": time.perf_counter() - t0,
+          "train_cell": {"plain": plain, "mesh_1x1": on_mesh,
+                         "checks": checks,
+                         "step_work_flops": work["flops"]},
+          "cells": cells, "failures": failures, "launches": counts})
+    assert not failures, failures
     return counts
 
 
@@ -2483,9 +2914,11 @@ def main() -> int:
     by_path["edge"] = phase_edge(kernels, names, device, oracle)
     by_path["lm"] = phase_lm(device)
     by_path["train"], unsharded = phase_train(kernels, names, device, oracle)
-    by_path["mesh"] = phase_mesh(device, unsharded)
-    del unsharded
+    by_path["mesh"], meshed = phase_mesh(device, unsharded)
     by_path["examples"] = phase_examples()
+    by_path["pipeline"] = phase_pipeline(device)
+    by_path["dryrun"] = phase_dryrun(unsharded, meshed)
+    del unsharded, meshed
     phase_context_switch(kernels, names, device)
     for name, rec in records.items():
         rec["launches"] = sum(c[name] for c in by_path.values())

@@ -38,9 +38,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (AttnDims, Init, apply_rope,
                                        attention_apply, attention_decode,
-                                       init_attention, init_mlp, init_moe,
-                                       init_norm, linear, mlp_apply,
-                                       moe_apply, rms_norm)
+                                       heads, init_attention, init_mlp,
+                                       init_moe, init_norm, is_dtensor, like,
+                                       linear, mlp_apply, moe_apply,
+                                       on_local_heads, rms_norm, rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,6 +188,32 @@ def init_stack_cache(cfg, stack: StackSpec, batch, cache_len, mem_len=0,
             for spec in stack.blocks]
 
 
+def _ring_fill(like, x):
+    """A zero cache shaped like ``like`` [B,W,...] holding ``x`` [B,S,...]
+    in the ring layout: absolute position p at slot p % W (decode assumes
+    it).  A DTensor cache is filled rank by rank: ``x`` is laid out as the
+    cache is and each rank writes its own block (the cache's position dim
+    must not be split)."""
+    if is_dtensor(like):
+        from torch.distributed.tensor import DTensor, Shard
+        mesh, pl = like.device_mesh, like.placements
+        if any(isinstance(p, Shard) and p.dim == 1 for p in pl):
+            raise ValueError(f"a cache split over positions ({pl}) cannot "
+                             "be filled by prefill")
+        local = _ring_fill(like.to_local(), x.redistribute(mesh, pl)
+                           .to_local())
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=like.shape, stride=like.stride())
+    S, W = x.shape[1], like.shape[1]
+    new = torch.zeros_like(like)
+    if S <= W:
+        new[:, :S] = x.to(new.dtype)
+    else:
+        slots = torch.arange(S - W, S, device=x.device) % W
+        new[:, slots] = x[:, -W:].to(new.dtype)
+    return new
+
+
 # --------------------------------------------------------------- block apply
 def block_apply(cfg, spec: BlockSpec, p, h, positions, memory=None,
                 mem_positions=None):
@@ -195,25 +222,25 @@ def block_apply(cfg, spec: BlockSpec, p, h, positions, memory=None,
     mamba block."""
     dims = AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     if spec.kind == "mamba":
-        return h + ssm_mod.mamba2_apply(p["mixer"], rms_norm(p["ln"], h),
-                                        dims=cfg.ssm), None
+        return h + rows(ssm_mod.mamba2_apply(
+            p["mixer"], rms_norm(p["ln"], h), dims=cfg.ssm)), None
     a = attention_apply(p["attn"], rms_norm(p["ln1"], h), dims=dims,
                         positions=positions, causal=spec.causal,
                         window=spec.window, rope_theta=cfg.rope_theta,
                         use_rope=spec.use_rope)
-    h = h + a
+    h = h + rows(a)
     if spec.cross:
         x = attention_apply(p["xattn"], rms_norm(p["lnx"], h), dims=dims,
                             positions=positions, causal=False, window=None,
                             rope_theta=cfg.rope_theta, use_rope=False,
                             kv=memory, kv_positions=mem_positions)
-        h = h + x
+        h = h + rows(x)
     inner = rms_norm(p["ln2"], h)
     if spec.moe:
         out, aux = moe_apply(p["moe"], inner, top_k=cfg.top_k)
     else:
         out, aux = mlp_apply(p["mlp"], inner), 0.0
-    return h + out, aux
+    return h + rows(out), aux
 
 
 def block_decode(cfg, spec: BlockSpec, p, h, cache, pos):
@@ -223,34 +250,37 @@ def block_decode(cfg, spec: BlockSpec, p, h, cache, pos):
         y, conv, ssm_st = ssm_mod.mamba2_decode(
             p["mixer"], rms_norm(p["ln"], h), cache["conv"], cache["ssm"],
             dims=cfg.ssm)
-        return h + y, {"conv": conv, "ssm": ssm_st}
+        return h + rows(y), {"conv": conv, "ssm": ssm_st}
     a, ck, cv = attention_decode(p["attn"], rms_norm(p["ln1"], h),
                                  cache["k"], cache["v"], pos, dims=dims,
                                  window=spec.window,
                                  rope_theta=cfg.rope_theta,
                                  use_rope=spec.use_rope)
-    h = h + a
+    h = h + rows(a)
     new_cache = dict(cache, k=ck, v=cv)
     if spec.cross:
         # cross K/V were filled at prefill; attend over all memory slots
         B = h.shape[0]
-        q = linear(p["xattn"]["wq"], rms_norm(p["lnx"], h)).reshape(
-            B, 1, dims.n_kv_heads, dims.n_heads // dims.n_kv_heads,
-            dims.head_dim)
-        logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(),
-                              cache["xk"].to(q.dtype).float())
-        logits = logits * dims.head_dim ** -0.5
-        probs = torch.softmax(logits, -1).to(h.dtype)
-        o = torch.einsum("bhgqk,bkhd->bqhgd", probs,
-                         cache["xv"].to(h.dtype))
+        q = heads(linear(p["xattn"]["wq"], rms_norm(p["lnx"], h)),
+                  B, 1, dims.n_kv_heads, dims.n_heads // dims.n_kv_heads,
+                  dims.head_dim)
+
+        def core(q, xk, xv, _, __):
+            logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(),
+                                  xk.to(q.dtype).float())
+            logits = logits * dims.head_dim ** -0.5
+            probs = torch.softmax(logits, -1).to(h.dtype)
+            return torch.einsum("bhgqk,bkhd->bqhgd", probs, xv.to(h.dtype))
+
+        o = on_local_heads(core, q, cache["xk"], cache["xv"], None, None)
         o = o.reshape(B, 1, dims.n_heads * dims.head_dim)
-        h = h + linear(p["xattn"]["wo"], o)
+        h = h + rows(linear(p["xattn"]["wo"], o))
     inner = rms_norm(p["ln2"], h)
     if spec.moe:
         out, _ = moe_apply(p["moe"], inner, top_k=cfg.top_k)
     else:
         out = mlp_apply(p["mlp"], inner)
-    return h + out, new_cache
+    return h + rows(out), new_cache
 
 
 def block_fill_cache(cfg, spec: BlockSpec, p, h_pre, cache, memory=None):
@@ -260,35 +290,27 @@ def block_fill_cache(cfg, spec: BlockSpec, p, h_pre, cache, memory=None):
     if spec.kind == "mamba":
         conv_st, ssm_st = ssm_mod.mamba2_states(
             p["mixer"], rms_norm(p["ln"], h_pre), dims=cfg.ssm)
-        return dict(cache, conv=conv_st.to(cache["conv"].dtype), ssm=ssm_st)
+        return dict(cache, conv=like(conv_st.to(cache["conv"].dtype),
+                                     cache["conv"]),
+                    ssm=like(ssm_st, cache["ssm"]))
     dims = AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     B, S, _ = h_pre.shape
     x = rms_norm(p["ln1"], h_pre)
-    k = linear(p["attn"]["wk"], x).reshape(B, S, dims.n_kv_heads,
-                                           dims.head_dim)
-    v = linear(p["attn"]["wv"], x).reshape(B, S, dims.n_kv_heads,
-                                           dims.head_dim)
+    k = heads(linear(p["attn"]["wk"], x), B, S, dims.n_kv_heads,
+              dims.head_dim)
+    v = heads(linear(p["attn"]["wv"], x), B, S, dims.n_kv_heads,
+              dims.head_dim)
     if spec.use_rope:
         pos = torch.arange(S, device=h_pre.device)[None].expand(B, S)
         k = apply_rope(k, pos, cfg.rope_theta)
-    # ring layout: absolute position p lives at slot p % W (decode assumes it)
-    W = cache["k"].shape[1]
-    new_k = torch.zeros_like(cache["k"])
-    new_v = torch.zeros_like(cache["v"])
-    if S <= W:
-        new_k[:, :S] = k.to(new_k.dtype)
-        new_v[:, :S] = v.to(new_v.dtype)
-    else:
-        slots = torch.arange(S - W, S, device=h_pre.device) % W
-        new_k[:, slots] = k[:, -W:].to(new_k.dtype)
-        new_v[:, slots] = v[:, -W:].to(new_v.dtype)
-    new = dict(cache, k=new_k, v=new_v)
+    new = dict(cache, k=_ring_fill(cache["k"], k),
+               v=_ring_fill(cache["v"], v))
     if spec.cross and memory is not None:
         Sm = memory.shape[1]
-        xk = linear(p["xattn"]["wk"], memory).reshape(B, Sm, dims.n_kv_heads,
-                                                      dims.head_dim)
-        xv = linear(p["xattn"]["wv"], memory).reshape(B, Sm, dims.n_kv_heads,
-                                                      dims.head_dim)
+        xk = heads(linear(p["xattn"]["wk"], memory), B, Sm,
+                   dims.n_kv_heads, dims.head_dim)
+        xv = heads(linear(p["xattn"]["wv"], memory), B, Sm,
+                   dims.n_kv_heads, dims.head_dim)
         new["xk"] = xk.to(cache["xk"].dtype)
         new["xv"] = xv.to(cache["xv"].dtype)
     return new

@@ -131,7 +131,105 @@ def init_linear(init: Init, lead, d_in, d_out, scale=None):
 
 
 def linear(p, x):
-    return x @ maybe_gather(p["w"].to(x.dtype))
+    return project(x, p["w"])
+
+
+def project(x, w):
+    """``x @ w`` for x [..., K] and a weight w [K, N] cast to x's dtype.
+    Where both are DTensors, ``_sharded_matmul``: the weight gathered in
+    its stored dtype and cast on each rank (the reference's 2-D layout
+    does the same), or, with weight gathering on, cast first and gathered
+    whole (``maybe_gather``: bf16 on the wire)."""
+    if is_dtensor(x) and is_dtensor(w) and not _WEIGHT_GATHER:
+        return _sharded_matmul(x, w)
+    w = maybe_gather(w.to(x.dtype))
+    if is_dtensor(x) and is_dtensor(w):
+        return _sharded_matmul(x, w)
+    return x @ w
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (made by no
+    allocation: the dry run would count one)."""
+    out, acc = [], 1
+    for n in reversed(shape):
+        out.append(acc)
+        acc *= max(n, 1)
+    return tuple(reversed(out))
+
+
+def _sharded_matmul(x, w):
+    """``x @ w`` as one local product a rank, the layouts fixed per mesh
+    dim as tensor-parallel layers fix them: where x's rows are split
+    (data parallel) w is gathered whole and the product's rows stay split;
+    where w's K is split (row-parallel) x's K is split alike and the
+    product is a pending sum (``Partial``); where w's N is split
+    (column-parallel) x is whole and the product's N is split; else both
+    are whole.  The weight's block is cast to x's dtype after the
+    gather.  The gradients' placements are stated the same way: a
+    gathered weight's and a column-parallel input's are pending sums
+    (a weight's reduced in its stored dtype).
+    DTensor's own choice for ``aten.mm`` varies by release (torch 2.11
+    computes whole products on every rank of the model axis when an input
+    is a pending sum)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, last = x.device_mesh, x.ndim - 1
+    xp, wp, outp, gx, gw = [], [], [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        if isinstance(px, Shard) and px.dim != last:     # rows split
+            lay = (px, Replicate(), px, px, Partial())
+        elif isinstance(pw, Shard) and pw.dim == 0:        # row-parallel
+            lay = (Shard(last), pw, Partial(), Shard(last), pw)
+        elif isinstance(pw, Shard):                        # column-parallel
+            lay = (Replicate(), pw, Shard(last), Partial(), pw)
+        else:
+            lay = (Replicate(),) * 5
+        for acc, pl in zip((xp, wp, outp, gx, gw), lay):
+            acc.append(pl)
+    # a tensor laid out already is not redistributed: the pending sums of
+    # x's gradient from several products (q, k, v; up, gate) then add up
+    # before one reduction
+    if list(x.placements) != xp:
+        x = x.redistribute(mesh, xp)
+    if list(w.placements) != wp:
+        w = w.redistribute(mesh, wp)
+    xl = x.to_local(grad_placements=gx)
+    wl = w.to_local(grad_placements=gw).to(x.dtype)
+    shape = torch.Size((*x.shape[:-1], w.shape[1]))
+    return DTensor.from_local(xl @ wl, mesh, outp, run_check=False,
+                              shape=shape, stride=contiguous_stride(shape))
+
+
+def heads(t, *shape):
+    """``t.reshape(*shape)``: a projection's last dim [..., n] split into
+    heads [..., kh, (g,) hd].  On a DTensor whose last dim is split over
+    mesh dims that the head count ``kh`` cannot be split over alike, that
+    dim is gathered first (DTensor refuses to split a sharded dim
+    unevenly)."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Shard
+        last = t.ndim - 1
+        n = 1
+        for i, p in enumerate(t.placements):
+            if isinstance(p, Shard) and p.dim == last:
+                n *= t.device_mesh.size(i)
+        if shape[last] % n:
+            t = whole_dim(t, -1)
+    return t.reshape(*shape)
+
+
+def rows(x):
+    """``x`` laid out as the batch is, the residual stream's layout
+    between blocks: on each mesh dim its rows (dim 0) split where they are
+    split already, else whole — pending sums reduced, other splits
+    gathered.  A plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in x.placements]
+    return x.redistribute(x.device_mesh, pl) \
+        if pl != list(x.placements) else x
 
 
 def init_norm(init: Init, lead, d):
@@ -293,24 +391,122 @@ def attention_apply(p, x, *, dims: AttnDims, positions, causal=True,
     B, S, _ = x.shape
     h, kh, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
     g = h // kh
-    q = linear(p["wq"], x).reshape(B, S, kh, g, hd)
+    q = heads(linear(p["wq"], x), B, S, kh, g, hd)
     src = x if kv is None else kv
     Sk = src.shape[1]
-    k = linear(p["wk"], src).reshape(B, Sk, kh, hd)
-    v = linear(p["wv"], src).reshape(B, Sk, kh, hd)
+    k = heads(linear(p["wk"], src), B, Sk, kh, hd)
+    v = heads(linear(p["wv"], src), B, Sk, kh, hd)
     kpos = positions if kv is None else kv_positions
     if use_rope:
         q = apply_rope(q.reshape(B, S, kh * g, hd), positions,
                        rope_theta).reshape(B, S, kh, g, hd)
         k = apply_rope(k, kpos, rope_theta)
     if window is not None and causal and Sk > flash_threshold:
-        out = _flash_windowed(q, k, v, positions, kpos, causal, window)
+        core = _flash_windowed
     elif Sk > flash_threshold:
-        out = _flash(q, k, v, positions, kpos, causal, window)
+        core = _flash
     else:
-        out = _sdpa(q, k, v, positions, kpos, causal, window)
+        core = _sdpa
+    out = on_local_heads(lambda q, k, v, qp, kp: core(q, k, v, qp, kp,
+                                                      causal, window),
+                         q, k, v, positions, kpos)
     out = out.reshape(B, S, h * hd)
     return linear(p["wo"], out)
+
+
+def on_local_rows(fn, tensors, params):
+    """``fn(*tensors, params)`` where every batch row (dim 0 of each
+    tensor) is independent of the others.  On plain tensors, the call
+    itself.  On DTensors each rank runs ``fn`` on its own rows — the
+    tensors laid out as ``rows`` lays out the first — with the params
+    whole, all as plain tensors; each output comes back as a DTensor of
+    that layout.  A param's gradient is a pending sum over the mesh dims
+    that split the rows.  For the code DTensor cannot shard through (the
+    Mamba2 mixer's splits, pads and scans: torch 2.11 fails on them)."""
+    if not is_dtensor(tensors[0]):
+        return fn(*tensors, params)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.utils._pytree import tree_map
+    lead = rows(tensors[0])
+    mesh, pl = lead.device_mesh, list(lead.placements)
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if p.is_shard() else Replicate() for p in pl]
+    local = [lead.to_local()] + [t.redistribute(mesh, pl).to_local()
+                                 for t in tensors[1:]]
+    out = fn(*local, tree_map(
+        lambda w: w.redistribute(mesh, whole).to_local(grad_placements=grad)
+        if is_dtensor(w) else w, params))
+
+    def wrap(o):
+        shape = torch.Size((lead.shape[0], *o.shape[1:]))
+        return DTensor.from_local(o, mesh, pl, run_check=False, shape=shape,
+                                  stride=contiguous_stride(shape))
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def like(x, ref):
+    """``x`` laid out as the DTensor ``ref`` is; a plain tensor as it
+    is."""
+    if is_dtensor(x) and is_dtensor(ref) and x.placements != ref.placements:
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
+
+
+def on_local_heads(core, q, k, v, q_pos, k_pos):
+    """``core(q, k, v, q_pos, k_pos)``: attention over q [B,Sq,KH,G,hd]
+    and k, v [B,Sk,KH,hd], independent per (batch row, kv head).  On plain
+    tensors, the call itself.  On DTensors, each rank runs ``core`` on its
+    own block of rows and kv heads, as tensor-parallel attention does: q,
+    k and v are laid out alike (``_local_layout``), their local blocks and
+    the matching rows of the positions go through ``core`` as plain
+    tensors, and the result comes back as a DTensor of that layout.
+    DTensor never sees the core's reshapes, pads and masks (torch 2.11
+    cannot propagate a sharding through some of them), and the core's
+    buffers hold a rank's block, not the global batch."""
+    if not is_dtensor(q):
+        return core(q, k, v, q_pos, k_pos)
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, shape = q.device_mesh, q.shape
+    pl = _local_layout(q)
+    (rows, *_), (off, *_) = compute_local_shape_and_global_offset(
+        shape, mesh, pl)
+
+    def mine(pos):
+        if pos is None:
+            return None
+        pos = full_value(pos)
+        return pos[off:off + rows] if pos.shape[0] > 1 else pos
+
+    out = core(*(x.redistribute(mesh, pl).to_local() for x in (q, k, v)),
+               mine(q_pos), mine(k_pos)).contiguous()
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def _local_layout(q) -> list:
+    """Placements for q, k and v under which attention is local to a
+    rank: on each mesh dim of size > 1 the batch rows (dim 0) or the kv
+    heads (dim 2) split — the one q is split on already, else the heads on
+    the ``model`` axis and the rows on the others — where it divides,
+    else replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    left = {0: q.shape[0], 2: q.shape[2]}
+    out = []
+    for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, q.placements)):
+        n = mesh.size(i)
+        order = (2, 0) if name == "model" else (0, 2)
+        if isinstance(p, Shard) and p.dim in left:
+            order = (p.dim,) + order
+        d = next((d for d in order if n > 1 and left[d] % n == 0), None)
+        if d is None:
+            out.append(Replicate())
+        else:
+            left[d] //= n
+            out.append(Shard(d))
+    return out
 
 
 def slot_positions(S: int, pos: int, device) -> torch.Tensor:
@@ -336,9 +532,9 @@ def attention_decode(p, x, cache_k, cache_v, pos, *, dims: AttnDims,
     g = h // kh
     S = cache_k.shape[1]
     pos = int(pos)
-    q = linear(p["wq"], x).reshape(B, 1, kh, g, hd)
-    k_new = linear(p["wk"], x).reshape(B, 1, kh, hd)
-    v_new = linear(p["wv"], x).reshape(B, 1, kh, hd)
+    q = heads(linear(p["wq"], x), B, 1, kh, g, hd)
+    k_new = heads(linear(p["wk"], x), B, 1, kh, hd)
+    v_new = heads(linear(p["wv"], x), B, 1, kh, hd)
     posv = torch.full((B, 1), pos, device=x.device)
     if use_rope:
         q = apply_rope(q.reshape(B, 1, h, hd), posv,
@@ -350,14 +546,17 @@ def attention_decode(p, x, cache_k, cache_v, pos, *, dims: AttnDims,
     cache_k[:, write_at] = k_new[:, 0].to(cache_k.dtype)
     cache_v[:, write_at] = v_new[:, 0].to(cache_v.dtype)
     k_pos = slot_positions(S, pos, x.device)[None].expand(B, S)
-    scale = hd ** -0.5
-    logits = _logits(q, cache_k.to(q.dtype), scale)
-    valid = (k_pos <= pos) & (k_pos >= 0)
-    if window is not None:
-        valid &= k_pos > pos - window
-    logits = torch.where(valid[:, None, None, None], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cache_v.to(x.dtype))
+
+    def core(q, ck, cv, _, k_pos):
+        logits = _logits(q, ck.to(q.dtype), hd ** -0.5)
+        valid = (k_pos <= pos) & (k_pos >= 0)
+        if window is not None:
+            valid &= k_pos > pos - window
+        logits = torch.where(valid[:, None, None, None], logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        return torch.einsum("bhgqk,bkhd->bqhgd", probs, cv.to(x.dtype))
+
+    out = on_local_heads(core, q, cache_k, cache_v, None, k_pos)
     out = out.reshape(B, 1, h * hd)
     return linear(p["wo"], out), cache_k, cache_v
 
@@ -418,11 +617,25 @@ def grouped_matmul(xs, w, group_sizes: list[int]):
     return torch.cat(parts)
 
 
+def _group_sizes(flat_e, E: int) -> list[int]:
+    """Rows routed to each expert, read on the host.  A meta or fake
+    tensor has no values (the dry run traces on them): its rows are split
+    evenly over the experts — the dispatch's work is the same T·k rows
+    whatever the split."""
+    fake = sys.modules.get("torch._subclasses.fake_tensor")
+    if flat_e.is_meta or (fake is not None
+                          and isinstance(flat_e, fake.FakeTensor)):
+        n = flat_e.numel()
+        return [n // E + (e < n % E) for e in range(E)]
+    return torch.bincount(flat_e, minlength=E).tolist()
+
+
 def moe_apply(p, x, *, top_k: int):
     """Sorted-dispatch MoE (MegaBlocks-style), one matmul per expert over its
     contiguous slice of the sorted tokens.  Returns (out, aux_loss).
 
-    The group sizes are read on the host (one device sync per call).  The
+    The group sizes are read on the host (one device sync per call;
+    ``_group_sizes`` splits the rows evenly where there are no values).  The
     combine unsorts to [T, k, D] and adds each token's k weighted outputs
     in ascending expert id — the order in which the reference's scatter-add
     over the expert-sorted rows meets them — starting from zeros, with no
@@ -448,7 +661,7 @@ def moe_apply(p, x, *, top_k: int):
     order = torch.argsort(flat_e, stable=True)
     token_of = order // top_k
     xs = xt[token_of]                                           # [T*k, D]
-    group_sizes = torch.bincount(flat_e, minlength=E).tolist()
+    group_sizes = _group_sizes(flat_e, E)
     up = grouped_matmul(xs, maybe_gather(p["w_up"].to(xs.dtype)),
                         group_sizes)
     gate = grouped_matmul(xs, maybe_gather(p["w_gate"].to(xs.dtype)),
@@ -468,4 +681,7 @@ def moe_apply(p, x, *, top_k: int):
         combined = combined + out_tk[:, j] * w[:, j, None]
     if "shared" in p:
         combined = combined + mlp_apply(p["shared"], xt)
-    return combined.reshape(B, S, D), aux
+    # laid out as the tokens came in: the gradient then reaches the
+    # combine whole, as the tokens were routed (torch 2.11 cannot shard the
+    # indexing's backward over split rows)
+    return like(combined.reshape(B, S, D), x), aux

@@ -22,8 +22,9 @@ import torch
 from repro_torch.core.vm import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.blocks import BlockSpec, StackSpec
-from repro_torch.models.layers import (COMPUTE_DTYPE, Init, init_norm,
-                                       maybe_gather, rms_norm, whole_dim)
+from repro_torch.models.layers import (COMPUTE_DTYPE, Init,
+                                       contiguous_stride, init_norm,
+                                       is_dtensor, project, rms_norm, rows)
 from repro_torch.models.ssm import SSMDims
 
 
@@ -173,11 +174,50 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
 
 # ---------------------------------------------------------------- forward
 def _embed(cfg, params, tokens):
-    h = params["embed"].to(COMPUTE_DTYPE)[tokens]
+    w = params["embed"].to(COMPUTE_DTYPE)
+    h = _lookup(w, tokens) if is_dtensor(w) else w[tokens]
     # sqrt(d_model) rounded to the compute dtype, as the reference's
     # jnp.asarray(..., COMPUTE_DTYPE); a Python number, so no host copy
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=COMPUTE_DTYPE).item()
     return h * scale
+
+
+def _lookup(w, tokens):
+    """``w[tokens]`` for a DTensor table, as each rank computes it: the
+    rank's rows of the vocab looked up locally (masked where the vocab is
+    split), the result sharded as the tokens are and pending a sum over
+    the vocab's axis (``Partial``); the table's gradient pending a sum
+    over the tokens' axes.  DTensor's own rules cannot carry this on torch
+    2.11 (the indexing's backward, an ``index_put``, fails to shard; the
+    embedding op's vocab-parallel rule loses its mask)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = w.device_mesh
+    tok = tokens.placements if is_dtensor(tokens) \
+        else [Replicate()] * mesh.ndim
+    out, grad = [], []
+    for pw, pt in zip(w.placements, tok):
+        split = isinstance(pw, Shard)
+        if split and not isinstance(pt, Replicate):
+            raise ValueError(f"vocab and tokens split on one mesh dim: "
+                             f"{w.placements} / {tok}")
+        out.append(Partial() if split else pt)
+        grad.append(pw if split else Partial() if isinstance(pt, Shard)
+                    else Replicate())
+    local = w.to_local(grad_placements=grad)
+    ids = tokens.to_local() if is_dtensor(tokens) else tokens
+    if any(isinstance(p, Shard) for p in w.placements):
+        (n, _), (v0, _) = compute_local_shape_and_global_offset(
+            w.shape, mesh, w.placements)
+        inside = (ids >= v0) & (ids < v0 + n)
+        h = local[torch.where(inside, ids - v0, 0)] \
+            * inside[..., None].to(local.dtype)
+    else:
+        h = local[ids]
+    shape = torch.Size((*tokens.shape, w.shape[1]))
+    return DTensor.from_local(h, mesh, out, run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
 
 
 def _sinusoid(S, D, dtype, device):
@@ -210,7 +250,7 @@ def forward(cfg: ModelConfig, params, tokens, *, extra_embeds=None,
 
     Returns (logits [B,S_total,V], aux_loss, new_caches).
     """
-    h = _embed(cfg, params, tokens)
+    h = rows(_embed(cfg, params, tokens))
     if extra_embeds is not None:
         h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
     Bsz, S, _ = h.shape
@@ -231,7 +271,7 @@ def forward(cfg: ModelConfig, params, tokens, *, extra_embeds=None,
         aux_total = aux_total + aux
         new_caches.append(c)
     h = rms_norm(params["final_norm"], h)
-    logits = h @ maybe_gather(params["head"].to(h.dtype))
+    logits = project(h, params["head"])
     return logits, aux_total, new_caches
 
 
@@ -244,12 +284,65 @@ def loss_fn(cfg, params, batch):
         frame_embeds=batch.get("frame_embeds"), mode="train")
     # targets align with the text positions (vision prefix emits no loss)
     tgt = tokens[:, 1:]
-    # a vocab-sharded DTensor is gathered along the vocab first
-    logits = whole_dim(logits[:, -tgt.shape[1]:].float(), -1)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tgt[..., None].long())[..., 0]
-    nll = (logz - gold).mean()
-    return nll + cfg.aux_loss_weight * aux
+    return _mean_nll(logits[:, -tgt.shape[1]:].float(), tgt) \
+        + cfg.aux_loss_weight * aux
+
+
+def _mean_nll(logits, tgt):
+    """The mean over tokens of ``logsumexp(logits) - logits[tgt]``.  On a
+    mesh, a vocab-parallel cross entropy: each rank keeps its block of
+    rows and of the vocab (pending sums reduced first); the logsumexp's
+    max and sum and the gold logit are reduced over the mesh dims that
+    split the vocab; the blocks' means over rows are summed pending
+    (``Partial``).  Where no mesh dim splits the vocab, a rank's block
+    takes ``nll``'s own arithmetic, so a one-rank mesh is the plain path
+    bit for bit."""
+    def nll(lg, t):
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, t[..., None].long())[..., 0]
+        return (logz - gold).mean()
+
+    if not is_dtensor(logits):
+        return nll(logits, tgt)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = logits.device_mesh
+    pl = [Replicate() if p.is_partial() else p for p in logits.placements]
+    lg = logits.redistribute(mesh, pl).to_local()
+    (nb, ns, nv), (b0, s0, v0) = compute_local_shape_and_global_offset(
+        logits.shape, mesh, pl)
+    row_pl = [p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+              for p in pl]
+    t = tgt.redistribute(mesh, row_pl).to_local() if is_dtensor(tgt) \
+        else tgt[b0:b0 + nb, s0:s0 + ns]
+    vocab = [i for i, p in enumerate(pl) if isinstance(p, Shard)
+             and p.dim == 2]
+
+    def over_vocab(x, op):
+        """``x`` [nb, ns] reduced by ``op`` over the vocab's mesh dims."""
+        shape = logits.shape[:2]
+        d = DTensor.from_local(x, mesh, [Partial(op) if i in vocab else p
+                                         for i, p in enumerate(row_pl)],
+                               run_check=False, shape=shape,
+                               stride=contiguous_stride(shape))
+        return d.redistribute(mesh, row_pl).to_local()
+
+    if vocab:
+        m = over_vocab(lg.detach().amax(-1), "max")
+        se = over_vocab(torch.exp(lg - m[..., None]).sum(-1), "sum")
+        inside = (t >= v0) & (t < v0 + nv)
+        gold = torch.gather(lg, -1, torch.where(inside, t - v0, 0)
+                            [..., None].long())[..., 0]
+        gold = over_vocab(torch.where(inside, gold, 0.0), "sum")
+        mean = (torch.log(se) + m - gold).mean()
+    else:
+        mean = nll(lg, t)
+    part = mean / (logits.shape[0] * logits.shape[1] // (nb * ns))
+    return DTensor.from_local(part, mesh, [Partial() if isinstance(p, Shard)
+                                           else Replicate() for p in row_pl],
+                              run_check=False, shape=torch.Size(()),
+                              stride=())
 
 
 # ------------------------------------------------------------------ caches
@@ -262,18 +355,51 @@ def init_caches(cfg, batch, cache_len, mem_len=0, dtype=torch.bfloat16,
 
 
 def prefill(cfg, params, tokens, *, cache_len=None, extra_embeds=None,
-            frame_embeds=None):
-    """Run the full prompt, returning (logits_last, caches)."""
+            frame_embeds=None, layout="2d"):
+    """Run the full prompt, returning (logits_last, caches).  With DTensor
+    params the caches are DTensors laid out by ``cache_shardings`` for
+    ``layout``, as decode takes them."""
     S = tokens.shape[1] + (extra_embeds.shape[1] if extra_embeds is not None
                            else 0)
     cache_len = cache_len or S
     mem_len = frame_embeds.shape[1] if frame_embeds is not None else 0
-    caches = init_caches(cfg, tokens.shape[0], cache_len, mem_len,
-                         device=tokens.device)
+    if is_dtensor(params["embed"]):
+        caches = _caches_on_mesh(cfg, params["embed"], tokens.shape[0],
+                                 cache_len, mem_len, layout)
+    else:
+        caches = init_caches(cfg, tokens.shape[0], cache_len, mem_len,
+                             device=tokens.device)
     logits, _, new_caches = forward(
         cfg, params, tokens, extra_embeds=extra_embeds,
         frame_embeds=frame_embeds, mode="prefill", caches=caches)
     return logits[:, -1], new_caches
+
+
+def _caches_on_mesh(cfg, like, batch, cache_len, mem_len, layout):
+    """Zero caches as DTensors on the mesh of the DTensor ``like``, placed
+    by ``cache_shardings``: each rank allocates its own block alone, on
+    the device of ``like``'s block."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.runtime import sharding as S
+    mesh, dev = like.device_mesh, like.to_local().device
+    with FakeTensorMode():   # the global shapes: no storage, no allocation
+        shapes = init_caches(cfg, batch, cache_len, mem_len, device="meta")
+    specs = S.sanitize(S.cache_shardings(cfg, mesh, batch,
+                                         S.for_mesh(mesh, layout)),
+                       shapes, mesh)
+
+    def zeros(like, spec):
+        pl = S.to_placements(spec, mesh)
+        local = list(like.shape)
+        for i, p in enumerate(pl):
+            if isinstance(p, Shard):
+                local[p.dim] //= mesh.size(i)
+        return DTensor.from_local(
+            torch.zeros(local, dtype=like.dtype, device=dev), mesh, pl,
+            run_check=False, shape=like.shape,
+            stride=contiguous_stride(like.shape))
+    return B.tree_map(zeros, shapes, specs)
 
 
 def decode_step(cfg, params, caches, token, pos):
@@ -282,7 +408,7 @@ def decode_step(cfg, params, caches, token, pos):
 
     Returns (logits [B,V], new_caches)."""
     pos = int(pos)
-    h = _embed(cfg, params, token)
+    h = rows(_embed(cfg, params, token))
     if cfg.use_abs_pos:
         D = cfg.d_model
         pos_f = torch.full((), float(pos), dtype=torch.float32,
@@ -297,5 +423,5 @@ def decode_step(cfg, params, caches, token, pos):
                               caches=caches[i], pos=pos)
         new_caches.append(c)
     h = rms_norm(params["final_norm"], h)
-    logits = (h @ maybe_gather(params["head"].to(h.dtype)))[:, 0]
+    logits = project(h, params["head"])[:, 0]
     return logits, new_caches

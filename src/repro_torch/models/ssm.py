@@ -15,7 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Init, init_linear, linear, rms_norm, silu
+from repro_torch.models.layers import (Init, init_linear, like, linear,
+                                       on_local_rows, rms_norm, silu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,11 +149,24 @@ def _dt_a(dt_raw, p):
     return dt, A
 
 
+def _mixer_params(p):
+    """The mixer's own params (all but the two projections)."""
+    return {k: v for k, v in p.items() if k not in ("in_proj", "out_proj")}
+
+
 def mamba2_apply(p, x, *, dims: SSMDims, chunk: int = 256):
-    """Full-sequence Mamba2 block. x [B,L,D] -> [B,L,D]."""
-    B, L, _ = x.shape
-    din, N, H, G = dims.d_inner, dims.d_state, dims.n_heads, dims.n_groups
+    """Full-sequence Mamba2 block. x [B,L,D] -> [B,L,D].  The mixer
+    between the projections runs on each rank's rows on a mesh
+    (``on_local_rows``)."""
     proj = linear(p["in_proj"], x)
+    y = on_local_rows(lambda proj, q: _mix(q, proj, dims, chunk), (proj,),
+                      _mixer_params(p))
+    return linear(p["out_proj"], y)
+
+
+def _mix(p, proj, dims: SSMDims, chunk: int):
+    B, L, _ = proj.shape
+    din, N, H, G = dims.d_inner, dims.d_state, dims.n_heads, dims.n_groups
     z, xBC, dt_raw = _split_proj(proj, dims)
     xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     xh, Bm, Cm = _split_xbc(xBC, dims)
@@ -161,15 +175,19 @@ def mamba2_apply(p, x, *, dims: SSMDims, chunk: int = 256):
                      Bm.reshape(B, L, G, N), Cm.reshape(B, L, G, N),
                      p["D"], min(chunk, L))
     y = y.reshape(B, L, din) * silu(z)
-    y = rms_norm(p["norm"], y)
-    return linear(p["out_proj"], y)
+    return rms_norm(p["norm"], y)
 
 
 def mamba2_states(p, x, *, dims: SSMDims, chunk: int = 256):
     """Final (conv_state, ssm_state) after a full prefill of x [B,L,D]."""
-    B, L, _ = x.shape
-    N, H, G = dims.d_state, dims.n_heads, dims.n_groups
     proj = linear(p["in_proj"], x)
+    return on_local_rows(lambda proj, q: _states(q, proj, dims, chunk),
+                         (proj,), _mixer_params(p))
+
+
+def _states(p, proj, dims: SSMDims, chunk: int):
+    B, L, _ = proj.shape
+    N, H, G = dims.d_state, dims.n_heads, dims.n_groups
     z, xBC_raw, dt_raw = _split_proj(proj, dims)
     conv_state = xBC_raw[:, -(dims.d_conv - 1):, :]
     xBC = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"])
@@ -208,10 +226,20 @@ def _ssd_final_state(xh, dt, A, Bm, Cm, chunk):
 
 def mamba2_decode(p, x, conv_state, ssm_state, *, dims: SSMDims):
     """O(1) recurrent step.  x [B,1,D]; conv_state [B,K-1,C];
-    ssm_state [B,H,N,P].  Returns (y, conv_state, ssm_state)."""
-    B = x.shape[0]
-    din, N, H, G = dims.d_inner, dims.d_state, dims.n_heads, dims.n_groups
+    ssm_state [B,H,N,P].  Returns (y, conv_state, ssm_state).  On a mesh
+    the step runs on each rank's rows and the states come back laid out
+    as they came in."""
     proj = linear(p["in_proj"], x)[:, 0]                   # [B, d_in_proj]
+    y, conv, ssm = on_local_rows(
+        lambda proj, cs, ss, q: _step(q, proj, cs, ss, dims, x.dtype),
+        (proj, conv_state, ssm_state), _mixer_params(p))
+    return linear(p["out_proj"], y)[:, None, :], like(conv, conv_state), \
+        like(ssm, ssm_state)
+
+
+def _step(p, proj, conv_state, ssm_state, dims: SSMDims, dtype):
+    B = proj.shape[0]
+    din, N, H, G = dims.d_inner, dims.d_state, dims.n_heads, dims.n_groups
     z, xBC, dt_raw = _split_proj(proj, dims)
     # conv over (state ++ current)
     full = torch.cat([conv_state, xBC[:, None, :].to(conv_state.dtype)], 1)
@@ -230,6 +258,5 @@ def mamba2_decode(p, x, conv_state, ssm_state, *, dims: SSMDims):
         + torch.einsum("bhn,bh,bhp->bhnp", Bh, dt, xhh)
     y = torch.einsum("bhn,bhnp->bhp", Ch, ssm_state) \
         + p["D"].float()[None, :, None] * xhh
-    y = y.reshape(B, din).to(x.dtype) * silu(z)
-    y = rms_norm(p["norm"], y)
-    return linear(p["out_proj"], y)[:, None, :], conv_state, ssm_state
+    y = y.reshape(B, din).to(dtype) * silu(z)
+    return rms_norm(p["norm"], y), conv_state, ssm_state

@@ -10,7 +10,7 @@ from torch.profiler import record_function
 
 from repro_torch.models import model as M
 from repro_torch.models.blocks import tree_leaves, tree_unflatten
-from repro_torch.models.layers import full_value, is_dtensor
+from repro_torch.models.layers import full_value, is_dtensor, whole_dim
 from repro_torch.runtime import optim as O
 from repro_torch.runtime.compress import compress_decompress
 
@@ -98,12 +98,14 @@ def make_train_step(cfg, oc: O.OptConfig, *, compress_grads: bool = False,
     return train_step
 
 
-def make_prefill_step(cfg, cache_len=None):
+def make_prefill_step(cfg, cache_len=None, *, layout="2d"):
+    """``layout``: the sharding rules' layout of the caches made on a mesh
+    (``models.model.prefill``)."""
     def prefill_step(params, batch):
         logits, caches = M.prefill(
             cfg, params, batch["tokens"], cache_len=cache_len,
             extra_embeds=batch.get("vision_embeds"),
-            frame_embeds=batch.get("frame_embeds"))
+            frame_embeds=batch.get("frame_embeds"), layout=layout)
         return logits, caches
 
     return prefill_step
@@ -113,7 +115,10 @@ def make_decode_step(cfg):
     def decode_step(params, caches, token, pos):
         logits, new_caches = M.decode_step(cfg, params, caches, token, pos)
         # greedy next token (serving driver may re-sample)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        # over the whole vocab: DTensor's own argmax over a split vocab
+        # gathers its pairs into a wrong shape where the batch is whole
+        next_tok = torch.argmax(whole_dim(logits, -1),
+                                dim=-1).to(torch.int32)
         return logits, next_tok, new_caches
 
     return decode_step

@@ -222,10 +222,11 @@ def test_multi_device_modules_stand_alone(module):
 
 
 def test_examples_exist_beside_the_references():
-    """The four examples ported, each beside its reference example."""
+    """The five examples ported, each beside its reference example."""
     names = [p.name for p in EXAMPLES]
-    assert names == ["overlay_pipeline_torch.py", "quickstart_torch.py",
-                     "serve_batch_torch.py", "train_e2e_torch.py"]
+    assert names == ["overlay_pipeline_torch.py", "pipeline_lm_torch.py",
+                     "quickstart_torch.py", "serve_batch_torch.py",
+                     "train_e2e_torch.py"]
     for p in EXAMPLES:
         assert (p.parent / p.name.replace("_torch", "")).is_file()
 
@@ -249,3 +250,41 @@ def test_multi_device_modules_import_without_a_process_group():
     proc = _run(code, PATH="", CUDA_VISIBLE_DEVICES="")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "Spec('data', 'model')"
+
+
+#: the microbatch pipeline ring and the dry run
+PIPELINE_AND_DRYRUN = ("repro_torch.runtime.pipeline",
+                       "repro_torch.launch.dryrun")
+
+
+@pytest.mark.parametrize("module", PIPELINE_AND_DRYRUN)
+def test_pipeline_and_dryrun_modules_stand_alone(module):
+    assert module in MODULES
+    path = ROOT / "src" / Path(*module.split("."))
+    assert not _imported_roots(path.with_suffix(".py")) & set(FORBIDDEN)
+
+
+def test_pipeline_and_dryrun_import_without_a_process_group():
+    """Importing them pulls in neither ``jax`` nor ``repro``, starts no
+    process group and loads no fake process group (the dry run makes its
+    fake world in ``fake_world``)."""
+    code = (
+        "import sys, importlib\n"
+        f"for m in {PIPELINE_AND_DRYRUN!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r} or m.endswith('fake_pg')]\n"
+        "assert not bad, bad\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "print('ok')\n")
+    proc = _run(code, PATH="", CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_every_reference_module_has_a_counterpart():
+    """The port covers every module of the JAX package, path for path."""
+    ref = {p.relative_to(ROOT / "src" / "repro")
+           for p in (ROOT / "src" / "repro").rglob("*.py")}
+    port = {p.relative_to(PACKAGE) for p in PACKAGE.rglob("*.py")}
+    assert ref <= port, sorted(map(str, ref - port))
