@@ -145,13 +145,16 @@ Phases, each printing one JSON line:
                measurements: peak memory within 10 % of the ``train`` and
                ``mesh`` phases' ``max_memory_allocated``, FLOPs within 15 %
                of ``train_step_work``; then ``python -m
-               repro_torch.launch.dryrun`` in a subprocess for deepseek-7b x
-               train_4k and x prefill_32k and qwen2-moe-a2.7b x decode_32k
-               on the single-pod (16, 16) mesh: records without ``error``;
-               train_4k's analytic / traced FLOPs a device inside the
+               repro_torch.launch.dryrun``, a subprocess a cell, all at
+               once, for deepseek-7b x train_4k and x prefill_32k,
+               qwen2-moe-a2.7b x decode_32k and x train_4k, and
+               mamba2-2.7b x train_4k and x decode_32k on the single-pod
+               (16, 16) mesh: records without ``error``; each train_4k
+               cell's analytic / traced FLOPs a device inside the
                reference's own (0.6, 1.7) and its arguments within 1 % of
-               the sharding rule's layout; the roofline terms,
-               bottleneck, useful-FLOPs ratio and collectives.
+               the sharding rule's layout; the roofline terms, wire
+               bytes, temp, bottleneck, useful-FLOPs ratio and
+               collectives, beside the reference's record.
                Both paths launch no TMFU kernel: counters set to 0 before,
                read after.
 9. ``context_switch``  ``Overlay.time_context_switch`` for the nine
@@ -170,6 +173,7 @@ by kernel name, the device's idle share of the drain) before step 10.
 """
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -2680,46 +2684,119 @@ def phase_pipeline(device) -> dict:
 DRY_MEM_REL, DRY_FLOPS_REL = 0.10, 0.15
 #: production cells traced by ``python -m repro_torch.launch.dryrun``
 DRY_CELLS = (("deepseek-7b", "train_4k"), ("deepseek-7b", "prefill_32k"),
-             ("qwen2-moe-a2.7b", "decode_32k"))
-#: the reference's own cross-check of the train_4k cell
+             ("qwen2-moe-a2.7b", "decode_32k"), ("mamba2-2.7b", "train_4k"),
+             ("qwen2-moe-a2.7b", "train_4k"), ("mamba2-2.7b", "decode_32k"))
+#: the reference's own cross-check of a train_4k cell
 #: (``tests/test_dryrun_unit.py::test_analytic_vs_spatial_dryrun_crosscheck``):
 #: analytic FLOPs a device over the traced ones, strictly inside
 DRY_ANALYTIC_RATIO = (0.6, 1.7)
-#: the train_4k cell's arguments a device against the sharding rule's
+#: a train_4k cell's arguments a device against the sharding rule's
 #: layout of params, m and v (12 B a param), relative
 DRY_ARG_REL = 0.01
+#: the reference's dry run of the same cells on the (16, 16) mesh
+#: (``python -m repro.launch.dryrun --arch A --shape S --mesh single``,
+#: jax 0.9.0 on a CPU host): its roofline terms in seconds under its
+#: own constants (``src/repro/launch/dryrun.py``: 197e12 FLOP/s, 819e9
+#: B/s, 50e9 B/s a link; the port's link is the same), wire bytes a
+#: device, temp GB a device; None where the record was not kept
+DRY_REFERENCE = {
+    ("deepseek-7b", "train_4k"): {
+        "t_compute_s": None, "t_memory_s": 2.14, "t_collective_s": 2.13,
+        "collective_wire_bytes_per_device": None, "temp_gb": None},
+    ("mamba2-2.7b", "train_4k"): {
+        "t_compute_s": None, "t_memory_s": 3.35, "t_collective_s": 1.77,
+        "collective_wire_bytes_per_device": 8.87e10, "temp_gb": 114},
+    ("qwen2-moe-a2.7b", "train_4k"): {
+        "t_compute_s": None, "t_memory_s": 5.23, "t_collective_s": 2.74,
+        "collective_wire_bytes_per_device": 1.37e11, "temp_gb": None},
+    ("mamba2-2.7b", "decode_32k"): {
+        "t_compute_s": None, "t_memory_s": None, "t_collective_s": 0.85e-3,
+        "collective_wire_bytes_per_device": 4.24e7, "temp_gb": 0.15},
+}
+#: the reference's HBM rate, to read its memory term as bytes
+REF_HBM_BW = 819e9
+#: ``benchmarks/analytic.py``'s SSD chunk
+SSD_CHUNK = 256
+
+
+def block_flops(cfg, spec, ctx: float, s_q: int) -> float:
+    """Forward FLOPs a query token of one block (whole model, before any
+    split): a copy of the reference's closed form
+    (``benchmarks/analytic.py::_per_block_flops``) — Mamba2's projections,
+    conv and chunked SSD over the causal half of a chunk; attention's
+    projections over ``ctx`` keys (the window's where it has one), the
+    cross-attention's, and the gated MLP or the MoE's router, top-k experts
+    and shared experts."""
+    D = cfg.d_model
+    if spec.kind == "mamba":
+        d = cfg.ssm
+        din, N, H, G = d.d_inner, d.d_state, d.n_heads, d.n_groups
+        f = 2 * D * (2 * din + 2 * G * N + H)          # in_proj
+        f += 2 * d.d_conv * (din + 2 * G * N)          # conv
+        q_bar = min(SSD_CHUNK, max(s_q, 1)) / 2        # intra-chunk keys
+        f += H * (2 * q_bar * (N + d.head_dim)         # scores + y_diag
+                  + 4 * N * d.head_dim)                # states + y_off
+        f += 2 * din * D                               # out_proj
+        return f
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    f = 2 * D * (H + 2 * KH) * hd + 2 * H * hd * D     # qkv + out proj
+    win_ctx = min(ctx, spec.window) if spec.window else ctx
+    f += 4 * H * hd * win_ctx                          # scores + AV
+    if spec.cross:
+        f += 2 * D * (H + 2 * KH) * hd + 2 * H * hd * D + 4 * H * hd * ctx
+    if spec.moe:
+        f += 2 * D * cfg.n_experts                     # router
+        f += cfg.top_k * 6 * D * cfg.expert_d_ff
+        if cfg.n_shared_experts:
+            f += 6 * D * cfg.shared_expert_d_ff
+    else:
+        f += 6 * D * cfg.d_ff
+    return f
 
 
 def analytic_train_flops(cfg, seq: int, gbatch: int, chips: int) -> float:
-    """FLOPs a device of a dense attention model's train step at ``gbatch``
-    x ``seq`` on ``chips`` devices: a copy of the reference's closed form
+    """FLOPs a device of a train step at ``gbatch`` x ``seq`` on ``chips``
+    devices: a copy of the reference's closed form
     (``benchmarks/analytic.py``: ``cell_model(...).flops_dev``, remat
-    "full") — the forward a token (q/k/v/o projections, attention over
-    the causal average of ``seq / 2`` keys, the gated MLP, the head) x
-    (seq - 1) tokens a row x 4 (forward, recompute, backward twice)."""
-    D, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    block = 2 * D * (H + 2 * KH) * hd + 2 * H * hd * D \
-        + 4 * H * hd * seq / 2 + 6 * D * cfg.d_ff
-    layers = sum(st.count * len(st.blocks) for st in cfg.stacks)
-    fwd = layers * block + 2 * D * cfg.vocab
+    "full") — every block's forward a token (``block_flops``, attention
+    over the causal average of ``seq / 2`` keys) and the head, x (seq - 1)
+    tokens a row x 4 (forward, recompute, backward twice)."""
+    stacks = list(cfg.stacks) + (list(cfg.encoder.stacks)
+                                 if cfg.encoder is not None else [])
+    fwd = sum(st.count * block_flops(cfg, b, seq / 2, seq)
+              for st in stacks for b in st.blocks) \
+        + 2 * cfg.d_model * cfg.vocab
     return fwd * gbatch * (seq - 1) * 4 / chips
 
 
-def dry_train_checks(rec) -> dict:
-    """deepseek-7b x train_4k on the (16, 16) mesh against what does not
-    come from the tracer: the analytic FLOPs (the reference's bound), and
-    the arguments against the rule's layout — 12 B a param (params, m, v
-    in float32) split 256 ways, but the embedding's 16 (``embed`` is
-    vocab-split over ``model`` alone, in the reference's rule too)."""
-    from repro_torch.configs import SHAPES, get_config
+def rule_argument_bytes(cfg, axes: dict) -> float:
+    """Arguments a device of a train step by the sharding rule alone: 12 B
+    a param (params, m, v in float32), each leaf split as the sanitized
+    ``param_shardings`` splits it over the mesh ``axes`` ({name: size}).
+    The embedding is split over ``model`` alone, in the reference's rule
+    too, and a vocab the axis does not divide is left whole."""
     from repro_torch.models import init_params
-    cfg = get_config("deepseek-7b")
+    from repro_torch.models.blocks import tree_leaves, tree_map
+    from repro_torch.runtime import sharding as S
+    mesh = (tuple(axes), tuple(axes.values()))
+    shapes = init_params(cfg, device="meta")
+    specs = S.sanitize(S.param_shardings(cfg, mesh), shapes, mesh)
+    share = tree_map(lambda x, sp: x.numel() * 12 / math.prod(
+        S._axis_size(e, axes) for e in sp), shapes, specs)
+    return sum(tree_leaves(share))
+
+
+def dry_train_checks(rec, arch: str) -> dict:
+    """``arch`` x train_4k on the (16, 16) mesh against what does not come
+    from the tracer: the analytic FLOPs (the reference's bound), and the
+    arguments against the rule's layout (``rule_argument_bytes``)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.mesh import production_mesh_shape
+    cfg = get_config(arch)
     seq, gbatch, _ = SHAPES["train_4k"]
     chips = rec["roofline"]["chips"]
-    shapes = init_params(cfg, device="meta")
-    P, P_embed = cfg.param_count(), shapes["embed"].numel()
-    want_args = ((P - P_embed) * 12 / chips
-                 + P_embed * 12 / (chips // 16))
+    shape, names = production_mesh_shape(False)
+    want_args = rule_argument_bytes(cfg, dict(zip(names, shape)))
     flops = rec["roofline"]["hlo_flops_per_device"]
     analytic = analytic_train_flops(cfg, seq, gbatch, chips)
     args = rec["memory"]["argument_size_in_bytes"]
@@ -2749,14 +2826,91 @@ def dry_train_cell(mesh) -> dict:
             "collectives": len(traced.collectives), "trace_s": t_trace}
 
 
+def production_cells(checks: dict, failures: list) -> dict:
+    """``DRY_CELLS`` through ``python -m repro_torch.launch.dryrun``, a
+    subprocess a cell, all started together (tracing is host work, one
+    core each): each cell's record beside the reference's; each train_4k
+    cell's checks (``dry_train_checks``) into ``checks``, every miss into
+    ``failures``."""
+    import tempfile
+    cells = {}
+    with tempfile.TemporaryDirectory() as out:
+        t1 = time.perf_counter()
+        procs = {}
+        for arch, shape in DRY_CELLS:
+            log = open(os.path.join(out, f"{arch}_{shape}.log"), "w+")
+            procs[arch, shape] = log, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", "single",
+                 "--out", out], stdout=log, stderr=subprocess.STDOUT,
+                text=True, cwd=str(ROOT),
+                env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                     "OMP_NUM_THREADS": "1"})
+        for (arch, shape), (log, proc) in procs.items():
+            try:
+                proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            log.seek(0)
+            stdout = log.read()
+            log.close()
+            seconds = time.perf_counter() - t1
+            path = os.path.join(out, f"{arch}_{shape}_single.json")
+            rec = {"error": "no record"}
+            if os.path.exists(path):
+                with open(path) as f:
+                    rec = json.load(f)
+            if proc.returncode != 0 or "error" in rec:
+                failures.append(f"{arch} x {shape}: rc {proc.returncode} "
+                                f"{rec.get('error')} {stdout[-2000:]}")
+                continue
+            roof = rec["roofline"]
+            if shape == "train_4k":
+                check = checks[f"{arch} x {shape}"] = \
+                    dry_train_checks(rec, arch)
+                lo, hi = DRY_ANALYTIC_RATIO
+                ratio = check["analytic_over_traced"]["ratio"]
+                rel = check["arguments"]["rel"]
+                if not lo < ratio < hi:
+                    failures.append(f"{arch} x train_4k analytic / traced "
+                                    f"FLOPs {ratio:.3f} outside ({lo}, {hi})")
+                if abs(rel) > DRY_ARG_REL:
+                    failures.append(f"{arch} x train_4k arguments "
+                                    f"{rel:+.4f} off the rule's layout")
+            ref = DRY_REFERENCE.get((arch, shape))
+            if ref is not None:
+                ref = dict(ref, bytes_accessed=None if ref["t_memory_s"]
+                           is None else ref["t_memory_s"] * REF_HBM_BW)
+            cells[f"{arch} x {shape}"] = {
+                "seconds": seconds,
+                "printed": [ln for ln in stdout.splitlines()
+                            if ln.startswith("[")],
+                "t_compute_s": roof["t_compute_s"],
+                "t_memory_s": roof["t_memory_s"],
+                "t_collective_s": roof["t_collective_s"],
+                "hlo_flops_per_device": roof["hlo_flops_per_device"],
+                "hlo_bytes_per_device": roof["hlo_bytes_per_device"],
+                "collective_wire_bytes_per_device":
+                    roof["collective_wire_bytes_per_device"],
+                "temp_gb": rec["memory"]["temp_size_in_bytes"] / 1e9,
+                "bottleneck": roof["bottleneck"],
+                "useful_flops_ratio": roof["useful_flops_ratio"],
+                "reference": ref,
+                "collectives": rec["collectives"], "memory": rec["memory"],
+                "timing": rec["timing"]}
+    return cells
+
+
 def phase_dryrun(unsharded, meshed) -> dict:
     """The dry run (``launch/dryrun.py``): the estimator held against what
     this run measured (the ``train`` phase's peak and its step's FLOPs;
-    the ``mesh`` phase's peak on a (1, 1) mesh), then three production
-    cells through the CLI in a subprocess, train_4k held to the analytic
-    FLOPs and the rule's argument bytes.  Host-side tracing: returns the
-    TMFU launch counts (none)."""
-    import tempfile
+    the ``mesh`` phase's peak on a (1, 1) mesh), then the production
+    cells of ``DRY_CELLS`` through the CLI, a subprocess each, every
+    train_4k cell held to the analytic FLOPs and the rule's argument
+    bytes, each cell beside the reference's record where there is one
+    (``DRY_REFERENCE``).  Host-side tracing: returns the TMFU launch
+    counts (none)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.kernels.tmfu import kernel as tk
@@ -2786,48 +2940,7 @@ def phase_dryrun(unsharded, meshed) -> dict:
                         "bound": bound}
         if abs(rel) > bound:
             failures.append(f"{name}: estimate {est} vs {want} ({rel:+.3f})")
-    cells = {}
-    with tempfile.TemporaryDirectory() as out:
-        for arch, shape in DRY_CELLS:
-            t1 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.dryrun",
-                 "--arch", arch, "--shape", shape, "--mesh", "single",
-                 "--out", out], capture_output=True, text=True, timeout=600,
-                cwd=str(ROOT), env={**os.environ,
-                                    "PYTHONPATH": str(ROOT / "src")})
-            with open(os.path.join(out, f"{arch}_{shape}_single.json")) as f:
-                rec = json.load(f)
-            if proc.returncode != 0 or "error" in rec:
-                failures.append(f"{arch} x {shape}: rc {proc.returncode} "
-                                f"{rec.get('error')} {proc.stderr[-2000:]}")
-                continue
-            roof = rec["roofline"]
-            if (arch, shape) == ("deepseek-7b", "train_4k"):
-                checks["train_4k"] = dry_train_checks(rec)
-                lo, hi = DRY_ANALYTIC_RATIO
-                ratio = checks["train_4k"]["analytic_over_traced"]["ratio"]
-                rel = checks["train_4k"]["arguments"]["rel"]
-                if not lo < ratio < hi:
-                    failures.append(f"train_4k analytic / traced FLOPs "
-                                    f"{ratio:.3f} outside ({lo}, {hi})")
-                if abs(rel) > DRY_ARG_REL:
-                    failures.append(f"train_4k arguments {rel:+.4f} off "
-                                    f"the rule's layout")
-            cells[f"{arch} x {shape}"] = {
-                "seconds": time.perf_counter() - t1,
-                "printed": [ln for ln in proc.stdout.splitlines()
-                            if ln.startswith("[")],
-                "t_compute_s": roof["t_compute_s"],
-                "t_memory_s": roof["t_memory_s"],
-                "t_collective_s": roof["t_collective_s"],
-                "hlo_flops_per_device": roof["hlo_flops_per_device"],
-                "collective_wire_bytes_per_device":
-                    roof["collective_wire_bytes_per_device"],
-                "bottleneck": roof["bottleneck"],
-                "useful_flops_ratio": roof["useful_flops_ratio"],
-                "collectives": rec["collectives"], "memory": rec["memory"],
-                "timing": rec["timing"]}
+    cells = production_cells(checks, failures)
     counts = dict(tk.launch_counts)
     emit({"phase": "dryrun", "seconds": time.perf_counter() - t0,
           "train_cell": {"plain": plain, "mesh_1x1": on_mesh,

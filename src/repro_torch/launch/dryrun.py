@@ -30,6 +30,7 @@ plain meta tensors.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -62,15 +63,18 @@ HBM_BW = 3.35e12
 #: inside a node), bounds a ring over either of them.
 LINK_BW = 50e9
 
-#: the functional collectives DTensor issues -> the reference's HLO kinds
+#: the functional collectives DTensor issues -> the reference's HLO kinds;
+#: ``shard_dim_alltoall`` is DTensor's Shard(i) -> Shard(j) move
 _KINDS = {"all_reduce": "all-reduce",
           "all_reduce_coalesced": "all-reduce",
           "all_gather_into_tensor": "all-gather",
           "all_gather_into_tensor_coalesced": "all-gather",
           "reduce_scatter_tensor": "reduce-scatter",
           "reduce_scatter_tensor_coalesced": "reduce-scatter",
-          "all_to_all_single": "all-to-all"}
-_COLLECTIVE_NS = ("_c10d_functional", "_c10d_functional_autograd")
+          "all_to_all_single": "all-to-all",
+          "shard_dim_alltoall": "all-to-all"}
+_COLLECTIVE_NS = ("_c10d_functional", "_c10d_functional_autograd",
+                  "_dtensor")
 
 def wire_bytes(kind: str, nbytes: float, group: int) -> float:
     """Per-device wire bytes of one collective (ring model), ``nbytes``
@@ -120,7 +124,9 @@ class _Tracer(TorchDispatchMode):
     non-view op's tensor inputs and outputs), ``collectives`` (kind,
     result bytes, group, wire bytes) and ``peak_bytes``: the most
     local storage alive at once — the arguments (``hold``) and every
-    storage an op returned, each dropped when it dies."""
+    storage an op returned, each dropped when it dies.  Inside it a
+    Shard(i) -> Shard(j) move is one all-to-all, as on an NCCL mesh
+    (``_alltoall_as_on_nccl``)."""
 
     def __init__(self):
         super().__init__()
@@ -136,6 +142,17 @@ class _Tracer(TorchDispatchMode):
         self._live: dict[int, int] = {}
         self.live_bytes = 0
         self.peak_bytes = 0
+
+    def __enter__(self):
+        self._alltoall = _alltoall_as_on_nccl()
+        self._alltoall.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._alltoall.__exit__(None, None, None)
 
     def hold(self, tensors) -> None:
         """Track ``tensors``' storages as alive."""
@@ -192,6 +209,34 @@ class _Tracer(TorchDispatchMode):
             self.bytes += sum(t.numel() * t.element_size()
                               for t in ins + outs)
         return out
+
+
+@contextlib.contextmanager
+def _alltoall_as_on_nccl():
+    """DTensor's Shard(i) -> Shard(j) move lowered as on an NCCL mesh,
+    whatever the mesh's device type: one ``_dtensor.shard_dim_alltoall``
+    (an all-to-all of the local shard).  On a ``cpu`` mesh, the dry run's,
+    DTensor would lower it to an all-gather and a chunk (gloo has no
+    all-to-all), which the tracer would count as an all-gather of the
+    whole.  The rebinding holds in every module of DTensor that imported
+    ``shard_dim_alltoall``, for the ``with`` block alone."""
+    from torch.distributed.tensor import _collective_utils as cu
+    real = cu.shard_dim_alltoall
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("torch.distributed.tensor")
+            and getattr(m, "shard_dim_alltoall", None) is real]
+    for m in mods:
+        m.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.shard_dim_alltoall = real
 
 
 @dataclasses.dataclass

@@ -165,19 +165,25 @@ def _sharded_matmul(x, w):
     where w's K is split (row-parallel) x's K is split alike and the
     product is a pending sum (``Partial``); where w's N is split
     (column-parallel) x is whole and the product's N is split; else both
-    are whole.  The weight's block is cast to x's dtype after the
-    gather.  The gradients' placements are stated the same way: a
-    gathered weight's and a column-parallel input's are pending sums
-    (a weight's reduced in its stored dtype).
+    are whole.  Where x's rows and w are both split over a dim and the
+    step's activations (x and the product) are fewer elements than w
+    (``_moves_less``: a decode step's few tokens), the activations move
+    instead: the dim takes the row- or column-parallel layout and the
+    product's rows are split over it again after.  The weight's block is
+    cast to x's dtype after the gather.  The gradients' placements are
+    stated the same way: a gathered weight's and a column-parallel
+    input's are pending sums (a weight's reduced in its stored dtype).
     DTensor's own choice for ``aten.mm`` varies by release (torch 2.11
     computes whole products on every rank of the model axis when an input
     is a pending sum)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh, last = x.device_mesh, x.ndim - 1
-    xp, wp, outp, gx, gw = [], [], [], [], []
+    xp, wp, outp, gx, gw, post = [], [], [], [], [], []
     for px, pw in zip(x.placements, w.placements):
-        if isinstance(px, Shard) and px.dim != last:     # rows split
-            lay = (px, Replicate(), px, px, Partial())
+        split = isinstance(px, Shard) and px.dim != last
+        if split and not (isinstance(pw, Shard) and _moves_less(
+                x.numel() // x.shape[-1], *w.shape)):
+            lay = (px, Replicate(), px, px, Partial())     # rows split
         elif isinstance(pw, Shard) and pw.dim == 0:        # row-parallel
             lay = (Shard(last), pw, Partial(), Shard(last), pw)
         elif isinstance(pw, Shard):                        # column-parallel
@@ -186,6 +192,7 @@ def _sharded_matmul(x, w):
             lay = (Replicate(),) * 5
         for acc, pl in zip((xp, wp, outp, gx, gw), lay):
             acc.append(pl)
+        post.append(px if split else lay[2])
     # a tensor laid out already is not redistributed: the pending sums of
     # x's gradient from several products (q, k, v; up, gate) then add up
     # before one reduction
@@ -196,8 +203,43 @@ def _sharded_matmul(x, w):
     xl = x.to_local(grad_placements=gx)
     wl = w.to_local(grad_placements=gw).to(x.dtype)
     shape = torch.Size((*x.shape[:-1], w.shape[1]))
-    return DTensor.from_local(xl @ wl, mesh, outp, run_check=False,
-                              shape=shape, stride=contiguous_stride(shape))
+    out = DTensor.from_local(xl @ wl, mesh, outp, run_check=False,
+                             shape=shape, stride=contiguous_stride(shape))
+    return out.redistribute(mesh, post) if post != outp else out
+
+
+def _moves_less(rows: int, k: int, n: int) -> bool:
+    """Whether ``rows`` activations of ``k`` elements in and ``n`` out are
+    fewer elements than a [k, n] weight: then moving them over a mesh
+    dim costs less than gathering the weight over it."""
+    return rows * (k + n) < k * n
+
+
+def _all_reduce(t, group):
+    """``t`` summed over ``group`` (a functional all-reduce, waited)."""
+    from torch.distributed import _functional_collectives as funcol
+    out = funcol.all_reduce(t.contiguous(), "sum", group)
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
+        else out
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.group = (mesh, dim)
+        return _all_reduce(t, ctx.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None, None
+
+
+def sum_over(t, mesh, dim: int):
+    """The plain tensor ``t`` summed over mesh dim ``dim`` of ``mesh`` (an
+    all-reduce), for a sum of pieces whose consumers differ from rank to
+    rank: its gradient is all-reduced too.  (A pending-sum DTensor made
+    whole would hand each rank its own piece of the gradient back.)"""
+    return _SumOver.apply(t, mesh, dim)
 
 
 def heads(t, *shape):
@@ -422,7 +464,11 @@ def on_local_rows(fn, tensors, params):
     whole, all as plain tensors; each output comes back as a DTensor of
     that layout.  A param's gradient is a pending sum over the mesh dims
     that split the rows.  For the code DTensor cannot shard through (the
-    Mamba2 mixer's splits, pads and scans: torch 2.11 fails on them)."""
+    Mamba2 mixer's splits, pads and scans: torch 2.11 fails on them).
+    Mamba2 (``models/ssm.py``) takes it where its heads cannot split over
+    the ``model`` axis — the axis of size one, rows split over it, or a
+    head or group count it does not divide — and its decode where the
+    caches' layout splits no state over that axis."""
     if not is_dtensor(tensors[0]):
         return fn(*tensors, params)
     from torch.distributed.tensor import DTensor, Partial, Replicate
@@ -641,20 +687,38 @@ def moe_apply(p, x, *, top_k: int):
     over the expert-sorted rows meets them — starting from zeros, with no
     float atomics: the same bits as the reference, run after run.
 
-    On DTensors the tokens are gathered whole on every rank first, and the
-    routing's index arithmetic runs on plain tensors."""
+    On DTensors each rank routes its own rows (``_moe_on_rows``)."""
+    if is_dtensor(x):
+        return _moe_on_rows(p, x, top_k)
     B, S, D = x.shape
-    E = p["w_up"].shape[0]
-    T = B * S
-    xt = whole_dim(x.reshape(T, D), 0)
-    logits = linear(p["router"], xt).float()                    # [T,E]
+    xt = x.reshape(B * S, D)
+    out, aux = _route(xt, p["router"]["w"], p["w_up"], p["w_gate"],
+                      p["w_down"], top_k)
+    if "shared" in p:
+        out = out + mlp_apply(p["shared"], xt)
+    return out.reshape(B, S, D), aux
+
+
+def _route(xt, router, w_up, w_gate, w_down, top_k: int, mean=None,
+           total=None):
+    """The routed experts over the tokens ``xt`` [T, D], plain tensors:
+    (combined [T, D], aux).  ``mean`` (default: none) takes the two [E]
+    means of the aux loss over these tokens to their means over all the
+    step's tokens; ``total`` (default: none) completes the products over
+    ``D`` — the router's logits, ``up`` and ``gate`` — where ``xt`` holds
+    a block of its columns and the weights the matching rows."""
+    T, D = xt.shape
+    E = w_up.shape[0]
+    total = total or (lambda t: t)
+    logits = total(project(xt, router)).float()                 # [T,E]
     probs = torch.softmax(logits, -1)
     gates, eid = lax_top_k(probs, top_k)                        # [T,k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    eid = full_value(eid)
     # load-balance aux loss (Switch-style)
     density = F.one_hot(eid[:, 0], E).float().mean(0)
     router_prob = probs.mean(0)
+    if mean is not None:
+        density, router_prob = mean(density), mean(router_prob)
     aux = E * (density * router_prob).sum()
 
     flat_e = eid.reshape(-1)                                    # [T*k]
@@ -662,12 +726,10 @@ def moe_apply(p, x, *, top_k: int):
     token_of = order // top_k
     xs = xt[token_of]                                           # [T*k, D]
     group_sizes = _group_sizes(flat_e, E)
-    up = grouped_matmul(xs, maybe_gather(p["w_up"].to(xs.dtype)),
-                        group_sizes)
-    gate = grouped_matmul(xs, maybe_gather(p["w_gate"].to(xs.dtype)),
-                          group_sizes)
+    up = total(grouped_matmul(xs, w_up.to(xs.dtype), group_sizes))
+    gate = total(grouped_matmul(xs, w_gate.to(xs.dtype), group_sizes))
     hidden = up * silu(gate)
-    out_s = grouped_matmul(hidden, maybe_gather(p["w_down"].to(xs.dtype)),
+    out_s = grouped_matmul(hidden, w_down.to(xs.dtype),
                            group_sizes)                         # [T*k, D]
     # unsort to [T, k, D], each token's k slots by ascending expert id (a
     # token's experts are distinct), and combine with the gate weights
@@ -676,12 +738,125 @@ def moe_apply(p, x, *, top_k: int):
     by_e = eid.argsort(-1)
     out_tk = out_s[unsort.reshape(T, top_k).gather(1, by_e)]    # [T,k,D]
     w = gates.gather(1, by_e).to(out_s.dtype)
-    combined = torch.zeros((T, D), dtype=out_s.dtype, device=x.device)
+    combined = torch.zeros((T, D), dtype=out_s.dtype, device=xt.device)
     for j in range(top_k):
         combined = combined + out_tk[:, j] * w[:, j, None]
+    return combined, aux
+
+
+def _moe_on_rows(p, x, top_k: int):
+    """``moe_apply`` on DTensors, on the reference's layout
+    (``router P(f, None)``, ``w_up/w_gate P(None, f, t)``, ``w_down
+    P(None, t, f)``: tensor-parallel experts over data-parallel tokens).
+    ``x`` is laid out as ``rows`` lays it out, and each rank routes its
+    own rows as plain tensors (``_route``): router, top-k, sort, the
+    [T_loc·k, D] gather, the products and the combine.  Per mesh dim:
+
+    * the rows split: the weights gathered whole, their gradients pending
+      sums — unless the step's tokens are fewer elements than the
+      experts' weights (``_moves_less``: a decode step) and the experts'
+      ``D`` is split over the dim: then the tokens are gathered over it
+      instead and each rank keeps its block of ``D`` — the router's
+      logits and ``up`` and ``gate`` are pending sums, completed before
+      the softmax and the activation (``sum_over``), ``down`` is N-split,
+      and the output's rows are split again after;
+    * else the experts' ``d_ff`` split (weight gathering off): each rank
+      keeps its block, as ``_sharded_matmul`` keeps a column-parallel
+      weight — ``up`` and ``gate`` are N-split products, ``down`` a
+      K-split one, and the combined output is a pending sum, reduced
+      where the dense MLP's is (``rows`` after the block);
+    * else (a ``d_ff`` the dim does not divide: the rule leaves it whole;
+      or weight gathering on) the experts run whole on every rank of it.
+
+    The router runs on every rank of a dim that splits ``d_ff`` or
+    ``D``, as the reference's replicated router does; its gradient
+    (through the gates, which weight pending sums) is then a pending sum
+    over the dim, and the aux loss is stated as one, ``1 / size`` of it a
+    rank.  The aux loss is the global one: its two [E] means are averaged
+    over the dims that split the rows before their product (two
+    all-reduces of E values).  The shared experts go through
+    ``mlp_apply`` on the same rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    B, S, D = x.shape
+    x = rows(x)
+    mesh, xpl = x.device_mesh, list(x.placements)
+    E, ff = p["w_up"].shape[0], p["w_up"].ndim - 1
+    few = not _WEIGHT_GATHER and _moves_less(B * S, D,
+                                             E * p["w_up"].shape[ff])
+    split = [q.is_shard() for q in xpl]
+    wpl = p["w_up"].placements
+    moved = [s and few and q == Shard(ff - 1) for s, q in zip(split, wpl)]
+    split = [s and not m for s, m in zip(split, moved)]
+    tp = [not s and not m and not _WEIGHT_GATHER and q == Shard(ff)
+          for s, m, q in zip(split, moved, wpl)]
+    part = [m or t for m, t in zip(moved, tp)]
+    n_rows = n_part = 1
+    for i in range(mesh.ndim):
+        n_rows *= mesh.size(i) if split[i] else 1
+        n_part *= mesh.size(i) if part[i] else 1
+
+    def block(w, dims):
+        """w's local block: ``dims`` (d_model, d_ff) split where the
+        tokens moved and where the experts' d_ff is split."""
+        if _WEIGHT_GATHER:
+            w = maybe_gather(w.to(x.dtype))
+        want = [Shard(dims[0]) if m else Shard(dims[1]) if t else Replicate()
+                for m, t in zip(moved, tp)]
+        grad = [Partial() if s else q for s, q in zip(split, want)]
+        return w.redistribute(mesh, want).to_local(grad_placements=grad)
+
+    router = p["router"]["w"]
+    if _WEIGHT_GATHER:
+        router = maybe_gather(router.to(x.dtype))
+    want = [Shard(0) if m else Replicate() for m in moved]
+    router = router.redistribute(mesh, want).to_local(grad_placements=[
+        Partial() if s or t else q for s, t, q in zip(split, tp, want)])
+    # x is redistributed only where the tokens move: a redistribution,
+    # even to the same layout, would reduce x's pending gradient here
+    # rather than with the block's other pending sums
+    xm = x.redistribute(mesh, [Replicate() if m else q for m, q in
+                               zip(moved, xpl)]) if any(moved) else x
+    xl = xm.to_local(grad_placements=[
+        Partial() if pt else q if s else Replicate()
+        for s, pt, q in zip(split, part, xpl)])
+    (dl,), (d0,) = compute_local_shape_and_global_offset(
+        torch.Size((D,)), mesh, [Shard(0) if m else Replicate()
+                                 for m in moved])
+
+    def mean(v):
+        """The mean over all rows of ``v``, a mean over this rank's."""
+        d = DTensor.from_local(v / n_rows, mesh, [
+            Partial() if s else Replicate() for s in split],
+            run_check=False, shape=v.shape, stride=v.stride())
+        return d.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+
+    def total(t):
+        """A product over this rank's block of D, summed over the dims
+        the tokens moved over."""
+        for i, m in enumerate(moved):
+            if m:
+                t = sum_over(t, mesh, i)
+        return t
+
+    out, aux = _route(xl.reshape(-1, D)[:, d0:d0 + dl], router,
+                      block(p["w_up"], (ff - 1, ff)),
+                      block(p["w_gate"], (ff - 1, ff)),
+                      block(p["w_down"], (ff, ff - 1)), top_k,
+                      mean if n_rows > 1 else None,
+                      total if any(moved) else None)
+    out_pl = [Shard(2) if m else Partial() if t else q if s else Replicate()
+              for s, m, t, q in zip(split, moved, tp, xpl)]
+    out = DTensor.from_local(out.reshape(-1, S, dl), mesh, out_pl,
+                             run_check=False, shape=x.shape,
+                             stride=contiguous_stride(x.shape))
+    if any(moved):
+        out = out.redistribute(mesh, [q if m else o for m, o, q
+                                      in zip(moved, out_pl, xpl)])
+    aux = DTensor.from_local(aux / n_part if n_part > 1 else aux, mesh,
+                             [Partial() if q else Replicate() for q in part],
+                             run_check=False, shape=aux.shape, stride=())
     if "shared" in p:
-        combined = combined + mlp_apply(p["shared"], xt)
-    # laid out as the tokens came in: the gradient then reaches the
-    # combine whole, as the tokens were routed (torch 2.11 cannot shard the
-    # indexing's backward over split rows)
-    return like(combined.reshape(B, S, D), x), aux
+        out = out + mlp_apply(p["shared"], x)
+    return out, aux

@@ -15,8 +15,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (Init, init_linear, like, linear,
-                                       on_local_rows, rms_norm, silu)
+from repro_torch.models.layers import (Init, contiguous_stride,
+                                       init_linear, is_dtensor, like,
+                                       linear, on_local_rows, rms_norm,
+                                       rows, silu, sum_over)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,49 +156,188 @@ def _mixer_params(p):
     return {k: v for k, v in p.items() if k not in ("in_proj", "out_proj")}
 
 
+def _model_dim(mesh):
+    """The index of ``mesh``'s ``model`` axis, or None."""
+    names = mesh.mesh_dim_names or ()
+    return names.index("model") if "model" in names else None
+
+
+def _head_axis(proj, dims: SSMDims):
+    """The mesh dim over which the mixer splits its heads, for the
+    DTensor ``proj`` (the in-projection): the ``model`` axis, where it is
+    larger than one, ``proj``'s rows are not split over it, and its size
+    divides the heads with each rank's heads in whole groups or within
+    one.  Else None: the mixer then runs on each rank's rows
+    (``on_local_rows``), as on a one-rank model axis, whose result is the
+    plain path's bit for bit."""
+    if not is_dtensor(proj):
+        return None
+    from torch.distributed.tensor import Shard
+    mesh = proj.device_mesh
+    i = _model_dim(mesh)
+    if i is None:
+        return None
+    n, H = mesh.size(i), dims.n_heads
+    rep = H // dims.n_groups
+    q = proj.placements[i]
+    if n == 1 or (isinstance(q, Shard) and q.dim == 0) or H % n \
+            or (H // n) % rep and rep % (H // n):
+        return None
+    return i
+
+
+def _by_heads(fn, proj, p, dims: SSMDims, axis: int):
+    """``fn(q, z, xBC, dt_raw, hl, gl)`` on this rank's heads of the
+    ``model`` axis (mesh dim ``axis``), as plain tensors: ``proj`` laid
+    out as ``rows`` lays it out (the in-projection made whole over the
+    axis), then sliced to the rank's ``hl`` heads — ``z``, ``dt_raw`` and
+    the conv's input, its heads' x channels followed by B and C of their
+    ``gl`` groups — and the mixer's params gathered whole and sliced
+    alike into ``q``.  Returns ``(fn's result, the rank's whole rows of
+    proj, their placements)``.  The gradients are pending sums over the
+    axis (each rank fills its heads' entries; the B and C columns add up)
+    and over the dims that split the rows."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.utils._pytree import tree_map
+    lead = rows(proj)
+    mesh, pl = lead.device_mesh, list(lead.placements)
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if q.is_shard() or i == axis else Replicate()
+            for i, q in enumerate(pl)]
+    local = lead.to_local(grad_placements=[Partial() if i == axis else q
+                                           for i, q in enumerate(pl)])
+    params = tree_map(lambda w: w.redistribute(mesh, whole).to_local(
+        grad_placements=grad) if is_dtensor(w) else w, _mixer_params(p))
+    din, N, H, G, P = (dims.d_inner, dims.d_state, dims.n_heads,
+                       dims.n_groups, dims.head_dim)
+    n, r = mesh.size(axis), mesh.get_local_rank(axis)
+    hl = H // n
+    gl = max(hl * G // H, 1)
+    c0, g0 = r * hl * P, r * hl * G // H * N
+    conv_cols = [(c0, c0 + hl * P), (din + g0, din + g0 + gl * N),
+                 (din + G * N + g0, din + G * N + g0 + gl * N)]
+
+    def cols(t, spans):
+        return torch.cat([t[..., a:b] for a, b in spans], -1)
+
+    z, xBC, dt_raw = _split_proj(local, dims)
+    h = slice(r * hl, (r + 1) * hl)
+    q = {"conv_w": cols(params["conv_w"], conv_cols),
+         "conv_b": cols(params["conv_b"], conv_cols),
+         "A_log": params["A_log"][h], "D": params["D"][h],
+         "dt_bias": params["dt_bias"][h],
+         "norm": {"g": params["norm"]["g"][c0:c0 + hl * P]}}
+    return fn(q, z[..., c0:c0 + hl * P], cols(xBC, conv_cols),
+              dt_raw[..., h], hl, gl), local, pl
+
+
 def mamba2_apply(p, x, *, dims: SSMDims, chunk: int = 256):
-    """Full-sequence Mamba2 block. x [B,L,D] -> [B,L,D].  The mixer
-    between the projections runs on each rank's rows on a mesh
-    (``on_local_rows``)."""
+    """Full-sequence Mamba2 block. x [B,L,D] -> [B,L,D].
+
+    On a mesh the mixer between the projections runs on each rank's rows
+    and, over the ``model`` axis, on its share of the heads
+    (``_head_axis``), as the reference's rule lays out its params
+    (``in_proj P(f, t)``, ``conv_w P(None, t)``, ``norm P(t)``,
+    ``out_proj P(t, f)``).  The in-projection is made whole over the axis
+    and each rank slices its heads' z, x and dt; B and C (``2·G·N``
+    columns) are shared by the heads of a group and are taken whole by
+    every rank of it, so their conv runs on each: the only work done
+    twice.  The gated norm's sum of squares is all-reduced over the axis.
+    A rank's ``y`` columns are the K-split input of ``out_proj``."""
     proj = linear(p["in_proj"], x)
-    y = on_local_rows(lambda proj, q: _mix(q, proj, dims, chunk), (proj,),
-                      _mixer_params(p))
+    axis = _head_axis(proj, dims)
+    if axis is None:
+        y = on_local_rows(lambda proj, q: _mix(q, proj, dims, chunk),
+                          (proj,), _mixer_params(p))
+        return linear(p["out_proj"], y)
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = proj.device_mesh
+
+    def mean_sq(sq):
+        """The mean of the squares over all heads' columns."""
+        return sum_over(sq.sum(-1, keepdim=True), mesh, axis) / dims.d_inner
+
+    y, _, pl = _by_heads(lambda q, z, xBC, dt_raw, hl, gl: _mix_heads(
+        q, z, xBC, dt_raw, dims, hl, gl, chunk, mean_sq), proj, p, dims,
+        axis)
+    pl[axis] = Shard(2)
+    shape = torch.Size((x.shape[0], x.shape[1], dims.d_inner))
+    y = DTensor.from_local(y, mesh, pl, run_check=False, shape=shape,
+                           stride=contiguous_stride(shape))
     return linear(p["out_proj"], y)
 
 
 def _mix(p, proj, dims: SSMDims, chunk: int):
-    B, L, _ = proj.shape
-    din, N, H, G = dims.d_inner, dims.d_state, dims.n_heads, dims.n_groups
     z, xBC, dt_raw = _split_proj(proj, dims)
-    xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
-    xh, Bm, Cm = _split_xbc(xBC, dims)
-    dt, A = _dt_a(dt_raw, p)
-    y = _ssd_chunked(xh.reshape(B, L, H, dims.head_dim), dt, A,
-                     Bm.reshape(B, L, G, N), Cm.reshape(B, L, G, N),
-                     p["D"], min(chunk, L))
-    y = y.reshape(B, L, din) * silu(z)
-    return rms_norm(p["norm"], y)
+    return _mix_heads(p, z, xBC, dt_raw, dims, dims.n_heads, dims.n_groups,
+                      chunk, lambda sq: sq.mean(-1, keepdim=True))
+
+
+def _conv_heads(q, xBC, dims: SSMDims, hl: int, gl: int):
+    """The conv over a rank's heads' channels, split into x [B,L,hl,P] and
+    B, C [B,L,gl,N]."""
+    B, L, _ = xBC.shape
+    N, dl = dims.d_state, hl * dims.head_dim
+    xBC = _causal_conv(xBC, q["conv_w"], q["conv_b"])
+    return (xBC[..., :dl].reshape(B, L, hl, dims.head_dim),
+            xBC[..., dl:dl + gl * N].reshape(B, L, gl, N),
+            xBC[..., dl + gl * N:].reshape(B, L, gl, N))
+
+
+def _mix_heads(q, z, xBC, dt_raw, dims: SSMDims, hl, gl, chunk, mean_sq,
+               eps=1e-6):
+    """The mixer on ``hl`` heads of ``gl`` groups: y [B,L,hl·P] and its
+    gated RMS norm over all ``d_inner`` columns, ``mean_sq`` taking the
+    mean of the squares (``rms_norm``'s arithmetic)."""
+    B, L, _ = z.shape
+    xh, Bm, Cm = _conv_heads(q, xBC, dims, hl, gl)
+    dt, A = _dt_a(dt_raw, q)
+    y = _ssd_chunked(xh, dt, A, Bm, Cm, q["D"], min(chunk, L))
+    y = y.reshape(B, L, hl * dims.head_dim) * silu(z)
+    yf = y.float()
+    return (yf * torch.rsqrt(mean_sq(yf * yf) + eps)
+            * q["norm"]["g"]).to(y.dtype)
 
 
 def mamba2_states(p, x, *, dims: SSMDims, chunk: int = 256):
-    """Final (conv_state, ssm_state) after a full prefill of x [B,L,D]."""
+    """Final (conv_state, ssm_state) after a full prefill of x [B,L,D].
+    On a mesh, by heads as ``mamba2_apply`` runs: the conv state [B,K-1,C]
+    comes whole over the ``model`` axis, the SSM state [B,H,N,P] split by
+    heads over it."""
     proj = linear(p["in_proj"], x)
-    return on_local_rows(lambda proj, q: _states(q, proj, dims, chunk),
-                         (proj,), _mixer_params(p))
+    axis = _head_axis(proj, dims)
+    if axis is None:
+        return on_local_rows(lambda proj, q: _states(q, proj, dims, chunk),
+                             (proj,), _mixer_params(p))
+    from torch.distributed.tensor import DTensor, Shard
+    mesh, K = proj.device_mesh, dims.d_conv
+
+    def states(q, z, xBC, dt_raw, hl, gl):
+        L = xBC.shape[1]
+        xh, Bm, Cm = _conv_heads(q, xBC, dims, hl, gl)
+        dt, A = _dt_a(dt_raw, q)
+        return _ssd_final_state(xh, dt, A, Bm, Cm, min(chunk, L))
+
+    ssm, local, pl = _by_heads(states, proj, p, dims, axis)
+    conv = _split_proj(local, dims)[1][:, -(K - 1):]
+    B = x.shape[0]
+    cshape = torch.Size((B, K - 1, conv.shape[-1]))
+    shape = torch.Size((B, dims.n_heads, dims.d_state, dims.head_dim))
+    conv = DTensor.from_local(conv, mesh, pl, run_check=False, shape=cshape,
+                              stride=contiguous_stride(cshape))
+    pl[axis] = Shard(1)
+    return conv, DTensor.from_local(ssm, mesh, pl, run_check=False,
+                                    shape=shape,
+                                    stride=contiguous_stride(shape))
 
 
 def _states(p, proj, dims: SSMDims, chunk: int):
-    B, L, _ = proj.shape
-    N, H, G = dims.d_state, dims.n_heads, dims.n_groups
     z, xBC_raw, dt_raw = _split_proj(proj, dims)
     conv_state = xBC_raw[:, -(dims.d_conv - 1):, :]
-    xBC = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"])
-    xh, Bm, Cm = _split_xbc(xBC, dims)
+    xh, Bm, Cm = _conv_heads(p, xBC_raw, dims, dims.n_heads, dims.n_groups)
     dt, A = _dt_a(dt_raw, p)
-    ssm_state = _ssd_final_state(
-        xh.reshape(B, L, H, dims.head_dim), dt, A,
-        Bm.reshape(B, L, G, N), Cm.reshape(B, L, G, N), min(chunk, L))
-    return conv_state, ssm_state
+    return conv_state, _ssd_final_state(xh, dt, A, Bm, Cm,
+                                        min(chunk, proj.shape[1]))
 
 
 def _ssd_final_state(xh, dt, A, Bm, Cm, chunk):
@@ -224,17 +365,99 @@ def _ssd_final_state(xh, dt, A, Bm, Cm, chunk):
     return hfin
 
 
+def _state_axis(conv_state, ssm_state):
+    """The mesh dim over which decode splits the states as
+    ``cache_shardings`` lays them out: the ``model`` axis where it splits
+    both the SSM state's ``d_state`` and the conv state's channels (the
+    rule splits each only where the axis divides it).  Else None."""
+    if not is_dtensor(ssm_state):
+        return None
+    from torch.distributed.tensor import Shard
+    i = _model_dim(ssm_state.device_mesh)
+    return i if i is not None and ssm_state.placements[i] == Shard(2) \
+        and conv_state.placements[i] == Shard(2) else None
+
+
 def mamba2_decode(p, x, conv_state, ssm_state, *, dims: SSMDims):
     """O(1) recurrent step.  x [B,1,D]; conv_state [B,K-1,C];
-    ssm_state [B,H,N,P].  Returns (y, conv_state, ssm_state).  On a mesh
-    the step runs on each rank's rows and the states come back laid out
-    as they came in."""
+    ssm_state [B,H,N,P].  Returns (y, conv_state, ssm_state); the states
+    come back laid out as they came in.
+
+    On a mesh whose ``model`` axis splits the states (``_state_axis``:
+    the SSM state over ``d_state``, the conv state over its channels)
+    each rank updates its own slices and no step gathers the SSM state:
+    the step's in-projection (one token a row) is made whole, the conv
+    runs on the rank's channels and its output [B, C] is gathered, the
+    rank's ``N / tp`` slice of the state is updated with its slice of B,
+    and ``y = Σ_n C[n]·state[n]`` is a pending sum, all-reduced once
+    ([B, H, P]).  Elsewhere the step runs on each rank's rows
+    (``on_local_rows``)."""
     proj = linear(p["in_proj"], x)[:, 0]                   # [B, d_in_proj]
-    y, conv, ssm = on_local_rows(
-        lambda proj, cs, ss, q: _step(q, proj, cs, ss, dims, x.dtype),
-        (proj, conv_state, ssm_state), _mixer_params(p))
-    return linear(p["out_proj"], y)[:, None, :], like(conv, conv_state), \
-        like(ssm, ssm_state)
+    axis = _state_axis(conv_state, ssm_state)
+    if axis is None:
+        y, conv, ssm = on_local_rows(
+            lambda proj, cs, ss, q: _step(q, proj, cs, ss, dims, x.dtype),
+            (proj, conv_state, ssm_state), _mixer_params(p))
+        return linear(p["out_proj"], y)[:, None, :], \
+            like(conv, conv_state), like(ssm, ssm_state)
+    return _step_split(p, proj, conv_state, ssm_state, dims, axis, x.dtype)
+
+
+def _step_split(p, proj, conv_state, ssm_state, dims: SSMDims, axis: int,
+                dtype):
+    """``mamba2_decode`` with the states split over mesh dim ``axis``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.utils._pytree import tree_map
+    mesh = ssm_state.device_mesh
+    pl = [Replicate() if i == axis else q
+          for i, q in enumerate(ssm_state.placements)]
+
+    def wrap(t, shape, on_axis=Replicate()):
+        """The rows ``t`` as a DTensor, ``on_axis`` its placement over the
+        axis."""
+        pls = [on_axis if i == axis else q for i, q in enumerate(pl)]
+        return DTensor.from_local(t, mesh, pls, run_check=False, shape=shape,
+                                  stride=contiguous_stride(shape))
+
+    q = tree_map(lambda w: w.redistribute(mesh, [Replicate()] * mesh.ndim)
+                 .to_local() if is_dtensor(w) else w, _mixer_params(p))
+    proj = proj.redistribute(mesh, pl).to_local()
+    B, Bg = proj.shape[0], ssm_state.shape[0]
+    din, N, H, G, P = (dims.d_inner, dims.d_state, dims.n_heads,
+                       dims.n_groups, dims.head_dim)
+    n, r = mesh.size(axis), mesh.get_local_rank(axis)
+    z, xBC, dt_raw = _split_proj(proj, dims)
+    # conv over (state ++ current), on this rank's channels
+    cs = conv_state.to_local()
+    C = xBC.shape[-1]
+    ch = slice(r * C // n, (r + 1) * C // n)
+    full = torch.cat([cs, xBC[:, None, ch].to(cs.dtype)], 1)
+    w = q["conv_w"][:, ch].to(full.dtype)
+    conv = torch.einsum("bkc,kc->bc", full, w) + q["conv_b"][ch].to(w.dtype)
+    conv = wrap(silu(conv), (Bg, C), Shard(1)).redistribute(mesh, pl) \
+        .to_local()
+    xh, Bm, Cm = _split_xbc(conv, dims)
+    dt, A = _dt_a(dt_raw, q)                                # [B,H]
+    ns = slice(r * N // n, (r + 1) * N // n)
+    rep = H // G
+    Bh = Bm.reshape(B, G, N)[..., ns].repeat_interleave(rep, dim=1).float()
+    Ch = Cm.reshape(B, G, N)[..., ns].repeat_interleave(rep, dim=1).float()
+    xhh = xh.reshape(B, H, P).float()
+    decay = torch.exp(dt * A)                               # [B,H]
+    ss = ssm_state.to_local() * decay[..., None, None] \
+        + torch.einsum("bhn,bh,bhp->bhnp", Bh, dt, xhh)
+    y = wrap(torch.einsum("bhn,bhnp->bhp", Ch, ss), (Bg, H, P), Partial()) \
+        .redistribute(mesh, pl).to_local()
+    y = y + q["D"].float()[None, :, None] * xhh
+    y = rms_norm(q["norm"], y.reshape(B, din).to(dtype) * silu(z))
+    out = linear(p["out_proj"], wrap(y, (Bg, din)))[:, None, :]
+    return (out,
+            DTensor.from_local(full[:, 1:], mesh, conv_state.placements,
+                               run_check=False, shape=conv_state.shape,
+                               stride=conv_state.stride()),
+            DTensor.from_local(ss, mesh, ssm_state.placements,
+                               run_check=False, shape=ssm_state.shape,
+                               stride=ssm_state.stride()))
 
 
 def _step(p, proj, conv_state, ssm_state, dims: SSMDims, dtype):

@@ -11,9 +11,12 @@ params and batch placed by the sanitized ``param_shardings`` /
 ``batch_shardings``
 (the explicit tensor-parallel products, the rows layout between blocks,
 the vocab-parallel loss), with ``set_weight_gather`` off and on, against
-``loss_and_grads`` on the same values as plain tensors in this process.
-Rank 0 writes, per arch, the loss and the largest gradient difference
-(relative to the leaf's largest magnitude) of each run.
+``loss_and_grads`` on the same values as plain tensors in this process;
+then the same on a short batch (2 rows of 3 tokens), whose products move
+their few activations rather than gather a weight over the data axis
+(``layers._moves_less``).  Rank 0 writes, per arch and batch, the loss,
+the largest gradient difference (relative to the leaf's largest
+magnitude) of each run and how many products moved their activations.
 """
 
 import json
@@ -38,42 +41,59 @@ def main(out, archs):
     TL.COMPUTE_DTYPE = TM.COMPUTE_DTYPE = torch.float32
     world = dist.get_world_size()
     mesh = remesh(range(world), model_parallel=world // 2, device_type="cpu")
+    moved = [0]
+    moves_less = TL._moves_less
+
+    def counted(*sizes):
+        out = moves_less(*sizes)
+        moved[0] += out
+        return out
+
+    TL._moves_less = counted
     report = {}
     for arch in archs:
         cfg = get_smoke_config(arch)
         params = TM.params_from_numpy(cfg, TM.numpy_params(cfg, 0),
                                       device="cpu")
-        rs = np.random.RandomState(5)
-        whole = {"tokens": torch.from_numpy(rs.randint(
-            0, cfg.vocab, (4, 17 - cfg.vision_tokens)).astype(np.int32))}
-        if cfg.vision_tokens:
-            whole["vision_embeds"] = torch.from_numpy(rs.standard_normal(
-                (4, cfg.vision_tokens, cfg.d_model)).astype(np.float32))
-        if cfg.encoder is not None:
-            whole["frame_embeds"] = torch.from_numpy(rs.standard_normal(
-                (4, 16, cfg.d_model)).astype(np.float32))
-        loss, grads = loss_and_grads(cfg, params, whole)
         pspec = S.sanitize(S.param_shardings(cfg, mesh), params, mesh)
-        bspec = S.batch_shardings(cfg, mesh, 4, "train")
         placed = reshard_tree(params, pspec, mesh)
-        batch = reshard_tree(whole, {k: bspec[k] for k in whole}, mesh)
-        row = {"loss": float(loss)}
-        for gather in (False, True):
-            TL.set_weight_gather(gather)
-            try:
-                got, ggrads = loss_and_grads(cfg, placed, batch)
-            finally:
-                TL.set_weight_gather(False)
-            worst = 0.0
-            for (path, g), (_, want) in zip(tree_leaves_with_path(ggrads),
-                                            tree_leaves_with_path(grads)):
-                g = full_value(g)
-                assert g.shape == want.shape, (path, g.shape, want.shape)
-                den = float(want.abs().max()) or 1.0
-                worst = max(worst, float((g - want).abs().max()) / den)
-            row[f"gather_{gather}"] = {"loss": float(got),
-                                       "grad_rel": worst}
-        report[arch] = row
+        report[arch] = {}
+        for name, rows, seq in (("full", 4, 17), ("short", 2, 3)):
+            rs = np.random.RandomState(5)
+            text = seq - cfg.vision_tokens if seq > cfg.vision_tokens else 2
+            whole = {"tokens": torch.from_numpy(rs.randint(
+                0, cfg.vocab, (rows, text)).astype(np.int32))}
+            if cfg.vision_tokens:
+                whole["vision_embeds"] = torch.from_numpy(
+                    rs.standard_normal((rows, cfg.vision_tokens,
+                                        cfg.d_model)).astype(np.float32))
+            if cfg.encoder is not None:
+                whole["frame_embeds"] = torch.from_numpy(rs.standard_normal(
+                    (rows, 16, cfg.d_model)).astype(np.float32))
+            loss, grads = loss_and_grads(cfg, params, whole)
+            bspec = S.batch_shardings(cfg, mesh, rows, "train")
+            batch = reshard_tree(whole, {k: bspec[k] for k in whole}, mesh)
+            row = {"loss": float(loss)}
+            for gather in (False, True):
+                TL.set_weight_gather(gather)
+                moved[0] = 0
+                try:
+                    got, ggrads = loss_and_grads(cfg, placed, batch)
+                finally:
+                    TL.set_weight_gather(False)
+                worst = 0.0
+                for (path, g), (_, want) in zip(
+                        tree_leaves_with_path(ggrads),
+                        tree_leaves_with_path(grads)):
+                    g = full_value(g)
+                    assert g.shape == want.shape, (path, g.shape,
+                                                   want.shape)
+                    den = float(want.abs().max()) or 1.0
+                    worst = max(worst, float((g - want).abs().max()) / den)
+                row[f"gather_{gather}"] = {"loss": float(got),
+                                           "grad_rel": worst,
+                                           "moved": moved[0]}
+            report[arch][name] = row
     dist.barrier()
     if dist.get_rank() == 0:
         with open(out, "w") as f:
