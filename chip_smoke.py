@@ -152,9 +152,16 @@ Phases, each printing one JSON line:
                (16, 16) mesh: records without ``error``; each train_4k
                cell's analytic / traced FLOPs a device inside the
                reference's own (0.6, 1.7) and its arguments within 1 % of
-               the sharding rule's layout; the roofline terms, wire
-               bytes, temp, bottleneck, useful-FLOPs ratio and
-               collectives, beside the reference's record.
+               the sharding rule's layout; mamba2-2.7b x train_4k's wire
+               bytes a device at most 1.5x the reference's record; the
+               roofline terms, wire bytes, temp, bottleneck, useful-FLOPs
+               ratio and collectives, beside the reference's record.
+               Then ``mamba_heads``: mamba2-2.7b at its published widths,
+               depth CUT to 2 of 64 layers, float32, B 4 x S 256, on four
+               gloo ranks of the host CPU as a (data 2, model 2) mesh:
+               loss and gradients against the plain step (1e-5 / 1e-4),
+               each rank's exchanges of head columns against the count
+               from the shapes.
                Both paths launch no TMFU kernel: counters set to 0 before,
                read after.
 9. ``context_switch``  ``Overlay.time_context_switch`` for the nine
@@ -2715,6 +2722,20 @@ DRY_REFERENCE = {
 }
 #: the reference's HBM rate, to read its memory term as bytes
 REF_HBM_BW = 819e9
+#: a cell's wire bytes a device, at most this multiple of the reference's
+#: record: mamba2-2.7b x train_4k's in-projection moves its heads'
+#: columns alone (one all-to-all, counted by its busiest rank, and an
+#: all-gather of B and C), not the whole of it
+DRY_WIRE_OVER_REFERENCE = {("mamba2-2.7b", "train_4k"): 1.5}
+#: the ``mamba_heads`` entry: mamba2-2.7b at its published widths with its
+#: depth CUT to 2 of 64 layers (the script's time), float32, a batch of 4
+#: rows of 256 tokens, on four gloo ranks of the host CPU as a (data 2,
+#: model 2) mesh (one card holds one NCCL rank)
+MH_ARCH, MH_LAYERS, MH_BATCH, MH_SEQ, MH_MESH = "mamba2-2.7b", 2, 4, 256, \
+    (2, 2)
+#: ``tests/test_torch_sharded_grads.py``'s bounds: the loss relative, each
+#: gradient leaf against its largest magnitude
+MH_LOSS_REL, MH_GRAD_REL = 1e-5, 1e-4
 #: ``benchmarks/analytic.py``'s SSD chunk
 SSD_CHUNK = 256
 
@@ -2826,6 +2847,188 @@ def dry_train_cell(mesh) -> dict:
             "collectives": len(traced.collectives), "trace_s": t_trace}
 
 
+def mamba_heads_config(layers: int = MH_LAYERS):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(MH_ARCH)
+    (stack,) = cfg.stacks
+    return dataclasses.replace(
+        cfg, stacks=(dataclasses.replace(stack, count=layers),))
+
+
+def mamba_heads_columns(dims, n: int) -> list:
+    """``splits[s][d]``: the in-projection columns ``model`` rank s of
+    ``n`` sends rank d (``s == d``: keeps) in one exchange of head
+    columns, counted from the shapes: a rank's block is its ``ceil(width
+    / n)`` contiguous columns; it gets its heads' z, x and dt, and the
+    ``ceil(2GN / n)`` columns of B and C that are its piece of them (an
+    all-gather then makes B and C whole on every rank)."""
+    din, N, H, G, P = (dims.d_inner, dims.d_state, dims.n_heads,
+                       dims.n_groups, dims.head_dim)
+    width, bc = 2 * din + 2 * G * N + H, 2 * din
+    step, piece = -(-width // n), -(-2 * G * N // n)
+    blocks = [set(range(r * step, min((r + 1) * step, width)))
+              for r in range(n)]
+    wants = []
+    for r in range(n):
+        heads = range(r * H // n, (r + 1) * H // n)
+        z = {c for h in heads for c in range(h * P, (h + 1) * P)}
+        wants.append(z | {din + c for c in z}
+                     | set(range(bc + r * piece,
+                                 min(bc + (r + 1) * piece, bc + 2 * G * N)))
+                     | {2 * din + 2 * G * N + h for h in heads})
+    return [[len(wants[d] & blocks[s]) for d in range(n)] for s in range(n)]
+
+
+def mamba_heads_rank(rank, port, outdir, layers):
+    """One of the four gloo ranks of the ``mamba_heads`` entry, on the
+    host CPU (``mp.spawn``): the sharded loss and gradients of
+    ``mamba_heads_config`` on a (data 2, model 2) mesh, every exchange of
+    head columns recorded (``layers._all_to_all``'s split matrix and row
+    bytes); rank 0 then computes the plain step on the same values."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    import repro_torch.models.layers as TL
+    import repro_torch.models.model as TM
+    from repro_torch.distributed.elastic import reshard_tree
+    from repro_torch.models import init_params
+    from repro_torch.models.blocks import tree_leaves_with_path
+    from repro_torch.runtime import sharding as S
+    from repro_torch.runtime.steps import loss_and_grads
+    world = MH_MESH[0] * MH_MESH[1]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(threads // world, 1))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        TL.COMPUTE_DTYPE = TM.COMPUTE_DTYPE = torch.float32
+        mesh = init_device_mesh("cpu", MH_MESH,
+                                mesh_dim_names=("data", "model"))
+        cfg = mamba_heads_config(layers)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+        whole = {"tokens": torch.randint(
+            0, cfg.vocab, (MH_BATCH, MH_SEQ), dtype=torch.int32,
+            generator=torch.Generator().manual_seed(SEED + 11))}
+        placed = reshard_tree(params, S.sanitize(
+            S.param_shardings(cfg, mesh), params, mesh), mesh)
+        bspec = S.batch_shardings(cfg, mesh, MH_BATCH, "train")
+        batch = reshard_tree(whole, {k: bspec[k] for k in whole}, mesh)
+        calls, real = [], TL._all_to_all
+
+        def recorded(t, splits, r, group):
+            calls.append({"splits": splits.tolist(),
+                          "row_bytes": t.shape[1] * t.element_size()})
+            return real(t, splits, r, group)
+
+        TL._all_to_all = recorded
+        try:
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(cfg, placed, batch)
+            sharded_s = time.perf_counter() - t0
+        finally:
+            TL._all_to_all = real
+        got = [(path, TL.full_value(g))
+               for path, g in tree_leaves_with_path(grads)]
+        report = {"model_rank": mesh.get_local_rank("model"),
+                  "calls": calls, "sharded_s": sharded_s}
+        if rank == 0:
+            torch.set_num_threads(threads)
+            t0 = time.perf_counter()
+            want_loss, want = loss_and_grads(cfg, params, whole)
+            report["plain_s"] = time.perf_counter() - t0
+            worst = (0.0, None)
+            for (path, g), (_, w) in zip(got, tree_leaves_with_path(want)):
+                den = float(w.abs().max()) or 1.0
+                worst = max(worst, (float((g - w).abs().max()) / den,
+                                    str(path)))
+            report.update(loss=float(loss), plain_loss=float(want_loss),
+                          grad_rel=worst[0], worst_leaf=worst[1])
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _moved(mats, r: int, row_bytes: int) -> tuple:
+    """``(received, sent)``: the bytes rank ``r`` receives from the other
+    ranks and sends them over the all-to-alls of split matrices
+    ``mats``."""
+    return (sum(m[s][r] for m in mats for s in range(len(m)) if s != r)
+            * row_bytes,
+            sum(m[r][d] for m in mats for d in range(len(m)) if d != r)
+            * row_bytes)
+
+
+def mamba_heads(failures: list, layers: int = MH_LAYERS) -> dict:
+    """The ``mamba_heads`` entry: ``mamba_heads_rank`` on four gloo ranks,
+    the loss and every gradient leaf held to the plain step's
+    (``MH_LOSS_REL``, ``MH_GRAD_REL``), and each rank's exchanges to the
+    count from the shapes (``mamba_heads_columns``): at each layer the
+    forward and its remat recompute receive the rank's missing columns
+    and send the others theirs, and the gradient goes back the reverse
+    way; every miss into ``failures``."""
+    import socket
+    import tempfile
+    import torch.multiprocessing as mp
+    cfg = mamba_heads_config(layers)
+    world = MH_MESH[0] * MH_MESH[1]
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        mp.spawn(mamba_heads_rank, args=(port, out, layers), nprocs=world,
+                 join=True)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    seconds = time.perf_counter() - t0
+    first = ranks[0]
+    loss_rel = abs(first["loss"] / first["plain_loss"] - 1)
+    if loss_rel > MH_LOSS_REL:
+        failures.append(f"mamba_heads: loss {first['loss']} vs plain "
+                        f"{first['plain_loss']} ({loss_rel:.2e})")
+    if first["grad_rel"] > MH_GRAD_REL:
+        failures.append(f"mamba_heads: gradient {first['worst_leaf']} off "
+                        f"by {first['grad_rel']:.2e} of its largest")
+    splits = mamba_heads_columns(cfg.ssm, MH_MESH[1])
+    back = [list(col) for col in zip(*splits)]
+    row_bytes = MH_BATCH // MH_MESH[0] * (MH_SEQ - 1) * 4
+    exchanges = []
+    for rep in ranks:
+        r = rep["model_rank"]
+        want = [splits] * (2 * layers) + [back] * layers
+        seen = [c["splits"] for c in rep["calls"]]
+        rows = {c["row_bytes"] for c in rep["calls"]}
+        if sorted(seen) != sorted(want) or rows != {row_bytes}:
+            failures.append(f"mamba_heads: model rank {r} exchanged "
+                            f"{seen} columns of {rows} B rows; the shapes "
+                            f"give {want} of {row_bytes} B")
+        (got_in, got_out), (want_in, want_out) = \
+            _moved(seen, r, row_bytes), _moved(want, r, row_bytes)
+        exchanges.append({
+            "model_rank": r, "calls": len(seen),
+            "received_bytes": got_in, "sent_bytes": got_out,
+            "expected_received_bytes": want_in,
+            "expected_sent_bytes": want_out,
+            "sharded_s": rep["sharded_s"]})
+    from repro_torch.configs import get_config
+    full = sum(st.count for st in get_config(MH_ARCH).stacks)
+    return {"config": f"{MH_ARCH} at published widths, depth cut to "
+                      f"{layers} of {full} layers",
+            "mesh": list(MH_MESH), "ranks": "gloo on the host CPU",
+            "batch": MH_BATCH, "seq": MH_SEQ, "dtype": "float32",
+            "loss": first["loss"], "plain_loss": first["plain_loss"],
+            "loss_rel": loss_rel, "grad_rel": first["grad_rel"],
+            "worst_leaf": first["worst_leaf"],
+            "bounds": {"loss_rel": MH_LOSS_REL, "grad_rel": MH_GRAD_REL},
+            "plain_s": first["plain_s"], "exchanges": exchanges,
+            "seconds": seconds}
+
+
 def production_cells(checks: dict, failures: list) -> dict:
     """``DRY_CELLS`` through ``python -m repro_torch.launch.dryrun``, a
     subprocess a cell, all started together (tracing is host work, one
@@ -2878,6 +3081,16 @@ def production_cells(checks: dict, failures: list) -> dict:
                 if abs(rel) > DRY_ARG_REL:
                     failures.append(f"{arch} x train_4k arguments "
                                     f"{rel:+.4f} off the rule's layout")
+            over = DRY_WIRE_OVER_REFERENCE.get((arch, shape))
+            if over is not None:
+                wire = roof["collective_wire_bytes_per_device"]
+                bound = over * DRY_REFERENCE[arch, shape][
+                    "collective_wire_bytes_per_device"]
+                checks[f"{arch} x {shape} wire bytes"] = {
+                    "traced": wire, "bound": bound}
+                if wire > bound:
+                    failures.append(f"{arch} x {shape} wire bytes a device "
+                                    f"{wire:.4g} above {bound:.4g}")
             ref = DRY_REFERENCE.get((arch, shape))
             if ref is not None:
                 ref = dict(ref, bytes_accessed=None if ref["t_memory_s"]
@@ -2909,8 +3122,11 @@ def phase_dryrun(unsharded, meshed) -> dict:
     cells of ``DRY_CELLS`` through the CLI, a subprocess each, every
     train_4k cell held to the analytic FLOPs and the rule's argument
     bytes, each cell beside the reference's record where there is one
-    (``DRY_REFERENCE``).  Host-side tracing: returns the TMFU launch
-    counts (none)."""
+    (``DRY_REFERENCE``), mamba2-2.7b x train_4k's wire bytes within
+    ``DRY_WIRE_OVER_REFERENCE`` of it; then the ``mamba_heads`` entry
+    (``mamba_heads``: four gloo ranks of the host, mamba2-2.7b's published
+    widths, depth cut to ``MH_LAYERS``).  Host-side work: returns the TMFU
+    launch counts (none)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.kernels.tmfu import kernel as tk
@@ -2941,12 +3157,14 @@ def phase_dryrun(unsharded, meshed) -> dict:
         if abs(rel) > bound:
             failures.append(f"{name}: estimate {est} vs {want} ({rel:+.3f})")
     cells = production_cells(checks, failures)
+    heads = mamba_heads(failures)
     counts = dict(tk.launch_counts)
     emit({"phase": "dryrun", "seconds": time.perf_counter() - t0,
           "train_cell": {"plain": plain, "mesh_1x1": on_mesh,
                          "checks": checks,
                          "step_work_flops": work["flops"]},
-          "cells": cells, "failures": failures, "launches": counts})
+          "cells": cells, "mamba_heads": heads, "failures": failures,
+          "launches": counts})
     assert not failures, failures
     return counts
 

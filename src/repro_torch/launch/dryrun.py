@@ -33,6 +33,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import sys
 import time
@@ -113,6 +114,18 @@ def _group_size(args, kwargs) -> int:
     raise ValueError(f"no process group among {args} {kwargs}")
 
 
+def all_to_all_wire_bytes(splits, row_bytes: int) -> float:
+    """Per-device wire bytes of an all-to-all whose rank s sends
+    ``splits[s, d]`` rows to rank d: its busiest rank's rows sent to the
+    others or received from them, whichever are more (an all-to-all
+    ends with its busiest rank; a rank's own split stays on the device).
+    With even splits that is every rank's ``(g - 1) / g`` of its result,
+    ``wire_bytes``' ring model."""
+    own = splits.diagonal()
+    return float(max((splits.sum(1) - own).max(),
+                     (splits.sum(0) - own).max())) * row_bytes
+
+
 class _Tracer(TorchDispatchMode):
     """Counts what one rank runs.  DTensor ops are left to DTensor
     (``NotImplemented``): it redistributes and calls the local op, which
@@ -126,7 +139,10 @@ class _Tracer(TorchDispatchMode):
     local storage alive at once — the arguments (``hold``) and every
     storage an op returned, each dropped when it dies.  Inside it a
     Shard(i) -> Shard(j) move is one all-to-all, as on an NCCL mesh
-    (``_alltoall_as_on_nccl``)."""
+    (``_alltoall_as_on_nccl``), and an all-to-all of
+    ``layers._all_to_all`` is counted by its busiest rank: the traced
+    rank sees only its own splits, so the whole split matrix is noted
+    as the call goes by (``_noted_all_to_all``)."""
 
     def __init__(self):
         super().__init__()
@@ -142,17 +158,28 @@ class _Tracer(TorchDispatchMode):
         self._live: dict[int, int] = {}
         self.live_bytes = 0
         self.peak_bytes = 0
+        self._splits = None
 
     def __enter__(self):
         self._alltoall = _alltoall_as_on_nccl()
         self._alltoall.__enter__()
+        self._real_all_to_all, L._all_to_all = L._all_to_all, \
+            self._noted_all_to_all
         return super().__enter__()
 
     def __exit__(self, *exc):
         try:
             return super().__exit__(*exc)
         finally:
+            L._all_to_all = self._real_all_to_all
             self._alltoall.__exit__(None, None, None)
+
+    def _noted_all_to_all(self, t, splits, r, group):
+        self._splits = splits
+        try:
+            return self._real_all_to_all(t, splits, r, group)
+        finally:
+            self._splits = None
 
     def hold(self, tensors) -> None:
         """Track ``tensors``' storages as alive."""
@@ -198,9 +225,15 @@ class _Tracer(TorchDispatchMode):
                 kind, group = _KINDS[name], _group_size(args, kwargs)
                 for o in outs:
                     size = o.numel() * o.element_size()
+                    wire = wire_bytes(kind, size, group)
+                    if name == "all_to_all_single" \
+                            and self._splits is not None:
+                        wire = all_to_all_wire_bytes(
+                            self._splits,
+                            math.prod(o.shape[1:]) * o.element_size())
                     self.collectives.append({
                         "kind": kind, "bytes": size, "group": group,
-                        "wire_bytes": wire_bytes(kind, size, group)})
+                        "wire_bytes": wire})
             return out
         fn = self._flop.get(func._overloadpacket)
         if fn is not None:

@@ -242,6 +242,121 @@ def sum_over(t, mesh, dim: int):
     return _SumOver.apply(t, mesh, dim)
 
 
+def chunk_spans(width: int, n: int) -> list:
+    """The ``(lo, hi)`` spans of a dim of ``width`` split over ``n`` ranks
+    as DTensor's ``Shard`` splits it (``torch.chunk``: chunks of
+    ``ceil(width / n)``, the last ones shorter or empty)."""
+    c = -(-width // n)
+    return [(min(r * c, width), min((r + 1) * c, width)) for r in range(n)]
+
+
+def column_plan(needs, width: int, shared: tuple):
+    """The all-to-all of ``exchange_columns`` over ``len(needs)`` ranks of
+    a dim of ``width`` split as ``chunk_spans`` splits it, ``needs[d]``
+    the ascending columns rank d needs.  The columns of the ``shared``
+    span ``(a, b)`` are not sent to every rank that needs them: rank d
+    gets its ``chunk_spans(b - a, n)`` piece of the span, which an
+    all-gather then makes whole on every rank.  Returns ``(wants,
+    splits, picks)``: ``wants[d]`` the ascending columns the all-to-all
+    hands rank d (its needs outside the span and its piece),
+    ``splits[s, d]`` how many of them lie in rank s's block (``s == d``:
+    kept), and ``picks[d]`` where ``needs[d]`` lie in ``wants[d]``
+    followed by the whole span."""
+    n, (a, b) = len(needs), shared
+    pieces = chunk_spans(b - a, n)
+    wants = [np.union1d(need[(need < a) | (need >= b)],
+                        np.arange(a + lo, a + hi))
+             for need, (lo, hi) in zip(needs, pieces)]
+    splits = np.array([[int(((w >= lo) & (w < hi)).sum()) for w in wants]
+                       for lo, hi in chunk_spans(width, n)])
+    picks = [np.where((need >= a) & (need < b), len(want) + need - a,
+                      np.searchsorted(want, need))
+             for need, want in zip(needs, wants)]
+    return wants, splits, picks
+
+
+def _waited(t):
+    from torch.distributed import _functional_collectives as funcol
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+def _all_to_all(t, splits, r: int, group):
+    """The rows of ``t`` exchanged over ``group``, rank ``r`` sending
+    ``splits[r, d]`` rows to rank d and receiving ``splits[s, r]`` from
+    rank s, in rank order (a functional all-to-all, waited)."""
+    from torch.distributed import _functional_collectives as funcol
+    return _waited(funcol.all_to_all_single(
+        t.contiguous(), splits[:, r].tolist(), splits[r].tolist(), group))
+
+
+class _ExchangeColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, send, splits, r, group):
+        ctx.plan = (send, splits, r, group, t.shape)
+        flat = t.reshape(-1, t.shape[-1]).t()              # [cols, tokens]
+        got = _all_to_all(flat.index_select(0, torch.cat(send)), splits, r,
+                          group)
+        return got.t().reshape(*t.shape[:-1], got.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        send, splits, r, group, shape = ctx.plan
+        back = _all_to_all(g.reshape(-1, g.shape[-1]).t(), splits.T, r,
+                           group)
+        grad = back.new_zeros(shape[-1], back.shape[1])
+        for idx, part in zip(send, back.split(splits[r].tolist())):
+            grad.index_add_(0, idx, part)
+        return grad.t().reshape(shape), None, None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """An all-gather of equal row blocks over ``group``; the gradient is
+    reduce-scattered back."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        from torch.distributed import _functional_collectives as funcol
+        ctx.group = group
+        return _waited(funcol.all_gather_tensor(t.contiguous(), 0, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+        return _waited(funcol.reduce_scatter_tensor(
+            g.contiguous(), "sum", 0, ctx.group)), None
+
+
+def exchange_columns(t, needs, width: int, shared: tuple, mesh, dim: int):
+    """This rank's columns ``needs[r]`` of a tensor whose last dim, of
+    ``width``, is split over mesh dim ``dim`` (``chunk_spans``), ``t`` the
+    rank's block as a plain tensor and ``needs[d]`` the ascending columns
+    (a numpy array) rank d needs.  One all-to-all over the dim sends each
+    rank the columns of the others' blocks that it needs outside the
+    ``shared`` span ``(a, b)``, and its even piece of that span; one
+    all-gather of the pieces then makes the span whole on every rank
+    (``column_plan``).  Columns needed by several ranks thus leave their
+    block once, and no rank sends much more than its block: the
+    all-to-all ends with its busiest rank.  The gradient goes back by a
+    reduce-scatter of the span and the reverse all-to-all, and is the
+    block's own."""
+    n, r = mesh.size(dim), mesh.get_local_rank(dim)
+    lo, hi = chunk_spans(width, n)[r]
+    assert t.shape[-1] == hi - lo, (t.shape, lo, hi)
+    wants, splits, picks = column_plan(needs, width, shared)
+    send = [torch.as_tensor(w[(w >= lo) & (w < hi)] - lo, dtype=torch.long,
+                            device=t.device) for w in wants]
+    got = _ExchangeColumns.apply(t, send, splits, r, (mesh, dim))
+    a, b = shared
+    p0, (plo, phi) = int(np.searchsorted(wants[r], a)), \
+        chunk_spans(b - a, n)[r]
+    piece = F.pad(got[..., p0:p0 + phi - plo],
+                  (0, -(-(b - a) // n) - (phi - plo)))
+    span = _GatherRows.apply(piece.movedim(-1, 0), (mesh, dim)).movedim(
+        0, -1)[..., :b - a]
+    return torch.cat([got, span], -1).index_select(
+        -1, torch.as_tensor(picks[r], dtype=torch.long, device=t.device))
+
+
 def heads(t, *shape):
     """``t.reshape(*shape)``: a projection's last dim [..., n] split into
     heads [..., kh, (g,) hd].  On a DTensor whose last dim is split over

@@ -12,13 +12,15 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (Init, contiguous_stride,
-                                       init_linear, is_dtensor, like,
-                                       linear, on_local_rows, rms_norm,
-                                       rows, silu, sum_over)
+                                       exchange_columns, init_linear,
+                                       is_dtensor, like, linear,
+                                       on_local_rows, rms_norm, rows, silu,
+                                       sum_over)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,49 +188,84 @@ def _head_axis(proj, dims: SSMDims):
     return i
 
 
-def _by_heads(fn, proj, p, dims: SSMDims, axis: int):
-    """``fn(q, z, xBC, dt_raw, hl, gl)`` on this rank's heads of the
-    ``model`` axis (mesh dim ``axis``), as plain tensors: ``proj`` laid
-    out as ``rows`` lays it out (the in-projection made whole over the
-    axis), then sliced to the rank's ``hl`` heads — ``z``, ``dt_raw`` and
-    the conv's input, its heads' x channels followed by B and C of their
-    ``gl`` groups — and the mixer's params gathered whole and sliced
-    alike into ``q``.  Returns ``(fn's result, the rank's whole rows of
-    proj, their placements)``.  The gradients are pending sums over the
-    axis (each rank fills its heads' entries; the B and C columns add up)
-    and over the dims that split the rows."""
-    from torch.distributed.tensor import Partial, Replicate
-    from torch.utils._pytree import tree_map
-    lead = rows(proj)
-    mesh, pl = lead.device_mesh, list(lead.placements)
-    whole = [Replicate()] * mesh.ndim
-    grad = [Partial() if q.is_shard() or i == axis else Replicate()
-            for i, q in enumerate(pl)]
-    local = lead.to_local(grad_placements=[Partial() if i == axis else q
-                                           for i, q in enumerate(pl)])
-    params = tree_map(lambda w: w.redistribute(mesh, whole).to_local(
-        grad_placements=grad) if is_dtensor(w) else w, _mixer_params(p))
+def head_columns(dims: SSMDims, n: int, r: int) -> np.ndarray:
+    """The in-projection's columns that rank ``r`` of an ``n``-way
+    ``model`` axis needs for its ``H / n`` heads, ascending, in the order
+    ``_by_heads`` hands them on: its heads' z, then the conv's input —
+    their x channels, B and C of their groups — then their dt."""
     din, N, H, G, P = (dims.d_inner, dims.d_state, dims.n_heads,
                        dims.n_groups, dims.head_dim)
-    n, r = mesh.size(axis), mesh.get_local_rank(axis)
     hl = H // n
     gl = max(hl * G // H, 1)
     c0, g0 = r * hl * P, r * hl * G // H * N
-    conv_cols = [(c0, c0 + hl * P), (din + g0, din + g0 + gl * N),
-                 (din + G * N + g0, din + G * N + g0 + gl * N)]
+    spans = [(c0, c0 + hl * P), (din + c0, din + c0 + hl * P),
+             (2 * din + g0, 2 * din + g0 + gl * N),
+             (2 * din + G * N + g0, 2 * din + G * N + g0 + gl * N),
+             (2 * din + 2 * G * N + r * hl, 2 * din + 2 * G * N
+              + (r + 1) * hl)]
+    return np.concatenate([np.arange(a, b) for a, b in spans])
 
-    def cols(t, spans):
-        return torch.cat([t[..., a:b] for a, b in spans], -1)
 
-    z, xBC, dt_raw = _split_proj(local, dims)
+def _by_heads(fn, proj, p, dims: SSMDims, axis: int):
+    """``fn(q, z, xBC, dt_raw, hl, gl)`` on this rank's heads of the
+    ``model`` axis (mesh dim ``axis``), as plain tensors: ``z``, ``dt_raw``
+    and the conv's input — the rank's ``hl`` heads' x channels followed by
+    B and C of their ``gl`` groups — are the rank's ``head_columns`` of
+    the in-projection ``proj``, and the mixer's params are gathered whole
+    and sliced alike into ``q``.  ``proj`` is laid out with its rows as
+    ``rows`` lays them out and its columns split over the axis, as the
+    column-parallel product leaves them; one all-to-all over the axis
+    (``exchange_columns``) then hands each rank its heads' z, x and dt
+    columns and an even piece of the B and C columns, and one all-gather
+    of the pieces makes B and C whole on every rank (each keeps its
+    groups').  Where the axis holds the columns whole already (weight
+    gathering), each rank takes its own.  Returns ``(fn's result, proj
+    so laid out, the rows layout's placements)``.  The gradient of the
+    columns comes back to the rank that holds them by a reduce-scatter
+    of B and C (the ranks' pieces summed) and the reverse all-to-all;
+    the params' gradients are pending sums over the axis (each rank
+    fills its heads' entries) and over the dims that split the rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.utils._pytree import tree_map
+    mesh, last = proj.device_mesh, proj.ndim - 1
+    whole = isinstance(proj.placements[axis], Replicate)
+    pl = [q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+          for q in proj.placements]
+    split = [Shard(last) if i == axis and not whole else q
+             for i, q in enumerate(pl)]
+    if list(proj.placements) != split:
+        proj = proj.redistribute(mesh, split)
+    n, r = mesh.size(axis), mesh.get_local_rank(axis)
+    need = head_columns(dims, n, r)
+    if whole:
+        local = proj.to_local(grad_placements=[
+            Partial() if i == axis else q for i, q in enumerate(split)])
+        cols = local.index_select(-1, torch.as_tensor(need,
+                                                      device=local.device))
+    else:
+        bc = 2 * dims.d_inner
+        cols = exchange_columns(
+            proj.to_local(grad_placements=split),
+            [head_columns(dims, n, d) for d in range(n)], proj.shape[-1],
+            (bc, bc + 2 * dims.n_groups * dims.d_state), mesh, axis)
+    grad = [Partial() if q.is_shard() or i == axis else Replicate()
+            for i, q in enumerate(pl)]
+    params = tree_map(lambda w: w.redistribute(
+        mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=grad)
+        if is_dtensor(w) else w, _mixer_params(p))
+    hl = dims.n_heads // n
+    gl = max(hl * dims.n_groups // dims.n_heads, 1)
+    dl = hl * dims.head_dim
+    # the conv's channels: the proj columns of x, B and C less d_inner
+    conv = torch.as_tensor(need[dl:-hl] - dims.d_inner, device=cols.device)
     h = slice(r * hl, (r + 1) * hl)
-    q = {"conv_w": cols(params["conv_w"], conv_cols),
-         "conv_b": cols(params["conv_b"], conv_cols),
+    q = {"conv_w": params["conv_w"].index_select(-1, conv),
+         "conv_b": params["conv_b"].index_select(-1, conv),
          "A_log": params["A_log"][h], "D": params["D"][h],
          "dt_bias": params["dt_bias"][h],
-         "norm": {"g": params["norm"]["g"][c0:c0 + hl * P]}}
-    return fn(q, z[..., c0:c0 + hl * P], cols(xBC, conv_cols),
-              dt_raw[..., h], hl, gl), local, pl
+         "norm": {"g": params["norm"]["g"][r * dl:(r + 1) * dl]}}
+    return fn(q, cols[..., :dl], cols[..., dl:-hl], cols[..., -hl:], hl,
+              gl), proj, pl
 
 
 def mamba2_apply(p, x, *, dims: SSMDims, chunk: int = 256):
@@ -238,11 +275,12 @@ def mamba2_apply(p, x, *, dims: SSMDims, chunk: int = 256):
     and, over the ``model`` axis, on its share of the heads
     (``_head_axis``), as the reference's rule lays out its params
     (``in_proj P(f, t)``, ``conv_w P(None, t)``, ``norm P(t)``,
-    ``out_proj P(t, f)``).  The in-projection is made whole over the axis
-    and each rank slices its heads' z, x and dt; B and C (``2·G·N``
-    columns) are shared by the heads of a group and are taken whole by
-    every rank of it, so their conv runs on each: the only work done
-    twice.  The gated norm's sum of squares is all-reduced over the axis.
+    ``out_proj P(t, f)``).  Each rank computes its block of the
+    in-projection's columns and one all-to-all hands it its heads' z, x
+    and dt (``_by_heads``); B and C (``2·G·N`` columns) are shared by the
+    heads of a group and an all-gather makes them whole on every rank, so
+    their conv runs on each: the only work done twice.  The gated norm's
+    sum of squares is all-reduced over the axis.
     A rank's ``y`` columns are the K-split input of ``out_proj``."""
     proj = linear(p["in_proj"], x)
     axis = _head_axis(proj, dims)
@@ -302,8 +340,8 @@ def _mix_heads(q, z, xBC, dt_raw, dims: SSMDims, hl, gl, chunk, mean_sq,
 def mamba2_states(p, x, *, dims: SSMDims, chunk: int = 256):
     """Final (conv_state, ssm_state) after a full prefill of x [B,L,D].
     On a mesh, by heads as ``mamba2_apply`` runs: the conv state [B,K-1,C]
-    comes whole over the ``model`` axis, the SSM state [B,H,N,P] split by
-    heads over it."""
+    comes whole over the ``model`` axis (the in-projection's last K-1
+    rows gathered), the SSM state [B,H,N,P] split by heads over it."""
     proj = linear(p["in_proj"], x)
     axis = _head_axis(proj, dims)
     if axis is None:
@@ -318,9 +356,14 @@ def mamba2_states(p, x, *, dims: SSMDims, chunk: int = 256):
         dt, A = _dt_a(dt_raw, q)
         return _ssd_final_state(xh, dt, A, Bm, Cm, min(chunk, L))
 
-    ssm, local, pl = _by_heads(states, proj, p, dims, axis)
-    conv = _split_proj(local, dims)[1][:, -(K - 1):]
+    ssm, proj, pl = _by_heads(states, proj, p, dims, axis)
     B = x.shape[0]
+    # the conv state: the last K - 1 rows of the in-projection, gathered
+    tshape = torch.Size((B, K - 1, proj.shape[-1]))
+    tail = DTensor.from_local(proj.to_local()[:, -(K - 1):], mesh,
+                              proj.placements, run_check=False, shape=tshape,
+                              stride=contiguous_stride(tshape))
+    conv = _split_proj(rows(tail).to_local(), dims)[1]
     cshape = torch.Size((B, K - 1, conv.shape[-1]))
     shape = torch.Size((B, dims.n_heads, dims.d_state, dims.head_dim))
     conv = DTensor.from_local(conv, mesh, pl, run_check=False, shape=cshape,

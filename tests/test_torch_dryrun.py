@@ -10,6 +10,10 @@ the reference's ``launch/dryrun.py``.
 * a Shard(0) -> Shard(1) move inside the tracer is one all-to-all of the
   local shard, as an NCCL mesh runs it (not the gloo fallback's
   all-gather of the whole);
+* Mamba2's in-projection on a fake (2, 2) mesh: no collective over the
+  ``model`` group moves it whole; its exchange of head columns a pass is
+  one all-to-all, counted by its busiest rank, and one all-gather of the
+  B and C pieces;
 * the whole-cell estimator on a fake (2, 2) mesh, in a subprocess (a
   fake process group would otherwise stay in this process): the
   deepseek-7b, qwen2-moe, mamba2 and zamba2 smoke configs, train,
@@ -39,8 +43,10 @@ from pathlib import Path
 
 import pytest
 
-from repro_torch.configs import ARCHS, SHAPES, cells, skip_reason
+from repro_torch.configs import (ARCHS, SHAPES, cells, get_smoke_config,
+                                 skip_reason)
 from repro_torch.launch import dryrun as D
+from repro_torch.models.ssm import head_columns
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -245,6 +251,92 @@ def test_flops_are_counted_per_device_not_globally():
     assert got["per_device"] * 4 == got["global"], got
     assert got["dtensor_counter"] == got["global"], got
     assert got["collectives"] == 0, got
+
+
+_MAMBA_HEADS = r"""
+import json
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.launch import dryrun as D
+
+D.SHAPES["tiny_train"] = (64, 8, "train")
+D.fake_world(4)
+mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+model = mesh.get_group("model").group_name
+seen = []
+
+
+class Tracer(D._Tracer):
+    # each collective the tracer counts, with its group and the elements
+    # of its input and its result
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        n = len(self.collectives)
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        for c in self.collectives[n:]:
+            seen.append(dict(c, op=str(func._overloadpacket),
+                             model=model in args,
+                             elements=max(args[0].numel(), out.numel())))
+        return out
+
+
+D._Tracer = Tracer
+cfg, batch, (seq, gbatch, kind) = D.input_specs("mamba2-2.7b", "tiny_train",
+                                                smoke=True)
+D.trace_step(cfg, batch, kind, seq, gbatch, mesh)
+d = cfg.ssm
+print(json.dumps({"seen": seen, "layers": cfg.stacks[0].count,
+                  "dims": [d.d_inner, d.d_state, d.head_dim, d.n_heads,
+                           d.n_groups],
+                  "tokens": gbatch // 2 * (seq - 1)}))
+"""
+
+
+def test_mamba_in_projection_moves_only_head_columns():
+    """mamba2-2.7b's smoke config (d_inner 128, N 16, P 16, H 8, G 1: 296
+    in-projection columns, 148 a rank's block, 164 its heads' columns) in
+    a train step on a fake (2, 2) mesh.  No collective over the ``model``
+    group moves the in-projection whole (a rank's rows x 296 columns: the
+    all-gather and reduce-scatter of a gathered in-projection would).  At
+    each layer the forward and its remat recompute do one all-to-all of
+    z, x, dt and a rank's 16-column piece of B and C, then one all-gather
+    of the pieces (32 columns); the backward one reduce-scatter of them
+    and the reverse all-to-all.  Each all-to-all counts the busiest
+    rank's columns sent or received, as the shapes give them."""
+    proc = _run([sys.executable, "-c", _MAMBA_HEADS])
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    dims = get_smoke_config("mamba2-2.7b").ssm
+    din, N, P, H, G = got["dims"]
+    assert [din, N, P, H, G] == [dims.d_inner, dims.d_state, dims.head_dim,
+                                 dims.n_heads, dims.n_groups]
+    width, tokens, layers = 2 * din + 2 * G * N + H, got["tokens"], \
+        got["layers"]
+    assert width == 296
+    on_model = [c for c in got["seen"] if c["model"]]
+    assert on_model
+    assert max(c["elements"] for c in on_model) < tokens * width, \
+        sorted(on_model, key=lambda c: -c["elements"])[0]
+    # each model rank's block is half the columns; B and C, [256, 288),
+    # go out in halves, each all-gathered onto both ranks
+    blocks = [set(range(0, 148)), set(range(148, 296))]
+    bc = set(range(2 * din, 2 * din + 2 * G * N))
+    needs = [set(head_columns(dims, 2, r).tolist()) for r in (0, 1)]
+    assert [len(x) for x in needs] == [164, 164]
+    wants = [needs[0] - bc | set(range(256, 272)),
+             needs[1] - bc | set(range(272, 288))]
+    cols = max(max(len(wants[r] - blocks[r]), len(wants[1 - r] & blocks[r]))
+               for r in (0, 1))
+    assert cols == 64
+    exchanges = [c for c in got["seen"] if c["kind"] == "all-to-all"]
+    assert all(c["model"] and c["op"] == "_c10d_functional.all_to_all_single"
+               for c in exchanges)
+    assert len(exchanges) == 3 * layers
+    assert [c["wire_bytes"] for c in exchanges] \
+        == [cols * tokens * 2] * len(exchanges)
+    pieces = [c for c in on_model if c["elements"] == 2 * G * N * tokens
+              and c["kind"] in ("all-gather", "reduce-scatter")]
+    assert sorted(c["kind"] for c in pieces) \
+        == ["all-gather"] * 2 * layers + ["reduce-scatter"] * layers
 
 
 _CELLS = r"""

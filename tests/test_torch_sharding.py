@@ -6,9 +6,11 @@ helper against the reference's, on the CPU with no process group.
   model 16), the port's ``param_shardings``, ``cache_shardings`` (batch
   1: sequence parallel; batch 8), ``batch_shardings``, ``opt_shardings``
   and ``sanitize`` trees equal the reference's ``PartitionSpec`` trees
-  leaf by leaf, paths included.  The port's rules read a ``(names,
-  sizes)`` description of the mesh; the reference's a ``Mesh`` over
-  repeated fake devices (``tests/test_sharding_rules.py``'s way).
+  leaf by leaf, paths included; mamba2-2.7b's vocab, which a 16-way
+  ``model`` axis does not divide, stays whole in both.  The port's rules
+  read a ``(names, sizes)`` description of the mesh; the reference's a
+  ``Mesh`` over repeated fake devices (``tests/test_sharding_rules.py``'s
+  way).
 * ``to_placements``: a dim split over several axes is ``Shard`` on each
   of them; a size-1 mesh dim replicates.
 * ``launch/mesh.py``: the re-mesh shapes for 1-16 survivors and the
@@ -111,6 +113,28 @@ def test_spec_trees_equal_the_reference(arch, layout, mesh):
         same(TS.batch_shardings(tcfg, tm, batch, "train", ax),
              JS.batch_shardings(jcfg, jm, batch, "train", jax_ax))
     same(TS.sanitize(tcache, tc_meta, tm), JS.sanitize(jcache, jc_sds, jm))
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+def test_a_vocab_the_model_axis_does_not_divide_stays_whole(mesh):
+    """mamba2-2.7b's vocab, 50 280, on a 16-way ``model`` axis: both
+    packages' ``sanitize`` drop the vocab split of the embedding and the
+    head, which then stay whole on every ``model`` rank (a settled
+    difference from an ideal layout, not a fault of the port: a padded
+    vocab split is a feature the reference lacks)."""
+    shape, names = MESHES[mesh]
+    jm, tm = _jax_mesh(shape, names), (names, shape)
+    jcfg, tcfg = jax_config("mamba2-2.7b"), torch_config("mamba2-2.7b")
+    assert tcfg.vocab == 50280 and tcfg.vocab % 16
+    jp_sds, _, tp_meta, _ = _shapes("mamba2-2.7b")
+    port = TS.sanitize(TS.param_shardings(tcfg, tm, TS.for_mesh(tm, "2d")),
+                       tp_meta, tm)
+    ref = JS.sanitize(JS.param_shardings(jcfg, jm, JS.for_mesh(jm, "2d")),
+                      jp_sds, jm)
+    assert TS.param_shardings(tcfg, tm)["embed"].entries[0] == "model"
+    for leaf in ("embed", "head"):
+        assert port[leaf].entries == tuple(ref[leaf]), leaf
+        assert "model" not in port[leaf].entries, (leaf, port[leaf])
 
 
 def test_to_placements_layouts():
