@@ -61,6 +61,7 @@ from repro_torch.core.dfg import Op
 from repro_torch.core.isa import IM_DEPTH, Program
 from repro_torch.core.vm import (S_MAX, host_context, host_dtype,
                                  resolve_device, tensor_dtype)
+from repro_torch.telemetry import span
 
 #: default number of resident contexts (two cascaded 8-kernel groups)
 DEFAULT_CAPACITY = 8
@@ -342,13 +343,14 @@ class ContextBank:
         # behind every earlier launch, so even an unpinned round that was
         # launched before this load has finished reading.  The copy out of
         # pageable host memory returns only after the host image was read.
-        self.op[slot].copy_(torch.from_numpy(ctx.op))
-        self.src_a[slot].copy_(torch.from_numpy(ctx.src_a))
-        self.src_b[slot].copy_(torch.from_numpy(ctx.src_b))
-        self.imm[slot].copy_(torch.from_numpy(ctx.imm))   # casts to dtype
-        out_pad = np.zeros(self.max_outputs, np.int32)
-        out_pad[:ctx.n_outputs] = ctx.out_idx
-        self.out_idx[slot].copy_(torch.from_numpy(out_pad))
+        with span("bank.load"):
+            self.op[slot].copy_(torch.from_numpy(ctx.op))
+            self.src_a[slot].copy_(torch.from_numpy(ctx.src_a))
+            self.src_b[slot].copy_(torch.from_numpy(ctx.src_b))
+            self.imm[slot].copy_(torch.from_numpy(ctx.imm))  # casts to dtype
+            out_pad = np.zeros(self.max_outputs, np.int32)
+            out_pad[:ctx.n_outputs] = ctx.out_idx
+            self.out_idx[slot].copy_(torch.from_numpy(out_pad))
         self._meta[slot] = {"name": name, "n_inputs": ctx.n_inputs,
                             "n_outputs": ctx.n_outputs,
                             "context_bytes": ctx.context_bytes}

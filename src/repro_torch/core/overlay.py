@@ -49,6 +49,7 @@ from repro_torch.core.schedule import Schedule, schedule
 from repro_torch.core.vm import (Context, dfg_eval, host_dtype, make_context,
                                  pad_inputs, resolve_device, to_host)
 from repro_torch.kernels.tmfu import ops as tmfu_ops
+from repro_torch.telemetry import span
 
 #: default per-tile batch width for bank dispatch (one CUDA block of lanes)
 DISPATCH_TILE = 128
@@ -287,10 +288,20 @@ class Overlay:
         staging with ``non_blocking=True`` would need an event before the
         recycle; not done here.)  Returns ``(id_arr, x_stack)`` on
         ``self.device``, or ``None`` when the round is all zero-length
-        requests (nothing to launch).
+        requests (nothing to launch).  The profiler ranges
+        ``overlay.pack`` and ``overlay.h2d`` mark the two parts.
         """
         if plan.g_total == 0:
             return None
+        with span("overlay.pack"):
+            ids_np, x_np = self._pack(plan)
+        with span("overlay.h2d"):
+            return (self._place(ids_np, torch.int32),
+                    self._place(x_np, self.dtype))
+
+    def _pack(self, plan: DispatchPlan):
+        """``assemble``'s host part: the round's ``(ids, tile stack)``
+        numpy arrays, in an arena block where the overlay has an arena."""
         np_dtype = self._np_dtype
         tile = plan.tile
         if self.arena is not None:
@@ -333,7 +344,7 @@ class Overlay:
         ids_np[plan.g_total:] = ids_np[0]
         if block is not None:
             block.dirty_rows = max(block.dirty_rows, dirty)
-        return self._place(ids_np, torch.int32), self._place(x_np, self.dtype)
+        return ids_np, x_np
 
     def _place(self, arr: np.ndarray, dtype) -> torch.Tensor:
         """A device COPY of a host staging array (never an alias of it —
@@ -499,14 +510,18 @@ class Overlay:
         """
         if not requests:
             return []
-        p = self.plan(bank, requests, tile=tile)
-        ys = self.execute(bank, self.assemble(p))
+        with span("overlay.plan"):
+            p = self.plan(bank, requests, tile=tile)
+        batch = self.assemble(p)
+        with span("overlay.launch"):
+            ys = self.execute(bank, batch)
         # the collect below never blocks, so there is no engine-style
         # delivery point to recycle at; the device placement in assemble
         # already copied the staging block, so hand it back now (release
         # on an unpinned plan only recycles)
         p.release(bank)
-        return self.collect(p, ys)
+        with span("overlay.collect"):
+            return self.collect(p, ys)
 
     # ------------------------------------------------------------ timing
     def time_context_switch(self, kernel: CompiledKernel,

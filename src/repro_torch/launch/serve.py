@@ -70,7 +70,8 @@ from repro_torch.sched import (AdmissionControl, AdmissionError, AutoPump,
                                TokenBucket, WorkRequest, make_round_policy,
                                make_router)
 from repro_torch.sched.rounds import DEFAULT_TENANT
-from repro_torch.telemetry import InMemorySink, MultiSink, adopt_counters
+from repro_torch.telemetry import (InMemorySink, MultiSink, adopt_counters,
+                                   span)
 
 __all__ = [
     "AdmissionControl", "AdmissionError", "AutoPump", "DEFAULT_TENANT",
@@ -433,11 +434,12 @@ class OverlayServer:
         # prune drained flows: a long-lived server over an unbounded
         # tenant-label space must not scan every tenant ever seen per
         # round (flows are recreated on the tenant's next submit)
-        for tenant in [t for t in self._rr if not self._flows[t].queue]:
-            del self._flows[tenant]
-            self._rr.remove(tenant)
-        return self.round_policy.form_round(self._flows, self._rr,
-                                            self.round_kernels)
+        with span("engine.form_round"):
+            for tenant in [t for t in self._rr if not self._flows[t].queue]:
+                del self._flows[tenant]
+                self._rr.remove(tenant)
+            return self.round_policy.form_round(self._flows, self._rr,
+                                                self.round_kernels)
 
     def make_preemptible(self, bulk_tenants=(), bulk_prefix=None):
         """Wrap this engine's round policy in a
@@ -511,13 +513,8 @@ class OverlayServer:
     def _run_work(self, work_reqs: list) -> dict:
         """Run a round's work callables (request order) host-side; the
         shared execution point of the streaming and ``flush_sync``
-        paths, so a work item's observable order is identical on both.
-        Walls land in ``engine.work_s`` (not the device stage walls)."""
-        t0 = self.clock()
-        work_outs = {r.ticket: r.fn() for r in work_reqs}
-        self.telemetry.inc("engine.work_s", self.clock() - t0)
-        self.telemetry.inc("engine.work_items", len(work_reqs))
-        return work_outs
+        paths, so a work item's observable order is identical on both."""
+        return {r.ticket: r.fn() for r in work_reqs}
 
     @_on_own_stream
     def _launch_round(self, reqs: list) -> None:
@@ -549,25 +546,27 @@ class OverlayServer:
             self._retire_oldest()
         pairs = [(r.kernel, r.xs) for r in kern_reqs]
         plan_s = 0.0
-        while True:
-            t0 = self.clock()
-            try:
-                plan = self.overlay.plan(self.bank, pairs, tile=self.tile,
-                                         pin=True)
-                plan_s += self.clock() - t0
-                break
-            except BankError:
-                # belt-and-braces: plan unwinds its own pins on failure, so
-                # retiring one more round and retrying is always safe
-                plan_s += self.clock() - t0
-                if not self._inflight:
-                    raise
-                self._retire_oldest()
+        with span("overlay.plan"):
+            while True:
+                t0 = self.clock()
+                try:
+                    plan = self.overlay.plan(self.bank, pairs,
+                                             tile=self.tile, pin=True)
+                    plan_s += self.clock() - t0
+                    break
+                except BankError:
+                    # belt-and-braces: plan unwinds its own pins on failure,
+                    # so retiring one more round and retrying is always safe
+                    plan_s += self.clock() - t0
+                    if not self._inflight:
+                        raise
+                    self._retire_oldest()
         t1 = self.clock()
         batch = self.overlay.assemble(plan)
         t2 = self.clock()
-        ys = self.overlay.execute(self.bank, batch)
-        done = _record_event(ys)
+        with span("overlay.launch"):
+            ys = self.overlay.execute(self.bank, batch)
+            done = _record_event(ys)
         # stage walls (streaming path only; flush_sync goes through the
         # dispatch oracle): plan/assemble are host work, execute here is
         # launch dispatch — the device wait lands in execute_s at retire
@@ -586,45 +585,48 @@ class OverlayServer:
         """Deliver the oldest in-flight round; returns its tickets."""
         inf = self._inflight.popleft()
         t0 = self.clock()
-        if inf.done is not None:
-            inf.done.synchronize()        # device wait, apart from readback
+        with span("engine.wait"):     # the device wait, apart from readback
+            if inf.done is not None:
+                inf.done.synchronize()
         t1 = self.clock()
         # host=True: live tiles/rows sliced device-side, one readback;
         # per-request slicing is numpy views, never device-op dispatch
         # (pure-work rounds have no plan and skip the device stages)
-        outs = (self.overlay.collect(inf.plan, inf.ys, host=True)
-                if inf.plan is not None else [])
+        with span("overlay.collect"):
+            outs = (self.overlay.collect(inf.plan, inf.ys, host=True)
+                    if inf.plan is not None else [])
         now = self.clock()
         self.telemetry.inc("engine.execute_s", t1 - t0)   # device wait
         self.telemetry.inc("engine.collect_s", now - t1)
-        tickets = []
-        kern_outs = iter(outs)
-        for r in inf.reqs:
-            y = (inf.work_outs[r.ticket] if isinstance(r, WorkRequest)
-                 else next(kern_outs))
-            self._done[r.ticket] = y
-            rec = self._records[r.ticket]
-            rec["t_done"] = now
-            rec["round"] = inf.round_no
-            tickets.append(r.ticket)
-            self.telemetry.event("deliver", tenant=r.tenant, cost=r.cost,
-                                 round=inf.round_no,
-                                 latency_s=now - rec["t_submit"])
-        if inf.plan is not None:
-            inf.plan.release(self.bank)
-        round_cost = sum(r.cost for r in inf.reqs)
-        self._pending_tiles -= round_cost
-        self.telemetry.inc("engine.delivered", len(inf.reqs))
-        self.telemetry.log_step(inf.round_no, tiles=round_cost,
-                                requests=len(inf.reqs),
-                                wall_s=now - inf.t_launch)
-        # feedback edge: adaptive policies size future rounds off this.
-        # Units are per-request ceil tiles (r.cost) — the SAME units the
-        # policies budget rounds in (and flush_sync reports), never the
-        # plan's merged group tiles, or a budget-vs-observation mismatch
-        # would stall DynamicTilePolicy's growth on sub-tile requests
-        self.round_policy.observe(round_cost, now - inf.t_launch)
-        return tickets
+        with span("engine.deliver"):
+            tickets = []
+            kern_outs = iter(outs)
+            for r in inf.reqs:
+                y = (inf.work_outs[r.ticket] if isinstance(r, WorkRequest)
+                     else next(kern_outs))
+                self._done[r.ticket] = y
+                rec = self._records[r.ticket]
+                rec["t_done"] = now
+                rec["round"] = inf.round_no
+                tickets.append(r.ticket)
+                self.telemetry.event("deliver", tenant=r.tenant,
+                                     cost=r.cost, round=inf.round_no,
+                                     latency_s=now - rec["t_submit"])
+            if inf.plan is not None:
+                inf.plan.release(self.bank)
+            round_cost = sum(r.cost for r in inf.reqs)
+            self._pending_tiles -= round_cost
+            self.telemetry.inc("engine.delivered", len(inf.reqs))
+            self.telemetry.log_step(inf.round_no, tiles=round_cost,
+                                    requests=len(inf.reqs),
+                                    wall_s=now - inf.t_launch)
+            # feedback edge: adaptive policies size future rounds off this.
+            # Units are per-request ceil tiles (r.cost) — the SAME units the
+            # policies budget rounds in (and flush_sync reports), never the
+            # plan's merged group tiles, or a budget-vs-observation mismatch
+            # would stall DynamicTilePolicy's growth on sub-tile requests
+            self.round_policy.observe(round_cost, now - inf.t_launch)
+            return tickets
 
     def _fill_pipeline(self) -> None:
         while len(self._inflight) < self.max_inflight:

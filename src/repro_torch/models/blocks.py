@@ -42,6 +42,7 @@ from repro_torch.models.layers import (AttnDims, Init, apply_rope,
                                        init_moe, init_norm, is_dtensor, like,
                                        linear, mlp_apply, moe_apply,
                                        on_local_heads, rms_norm, rows)
+from repro_torch.telemetry import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -325,6 +326,8 @@ def run_stack(cfg, stack: StackSpec, sp, h, positions, *, mode="train",
     index the stacked leaves layer by layer, and train splits them once
     and rematerialises each layer; in spatial mode they are split per
     layer first.  Shared-block params are the same tree at every layer.
+    The layers' new caches are stacked inside the profiler range
+    ``decode.cache_stack`` (prefill's too).
     """
     tm = getattr(cfg, "scan_layers", True)
     specs = stack.blocks
@@ -369,7 +372,8 @@ def run_stack(cfg, stack: StackSpec, sp, h, positions, *, mode="train",
     aux = _sum_layers(aux_layers, h.device)
     if mode == "train":
         return h, aux, []
-    return h, aux, tree_stack(outs)
+    with span("decode.cache_stack"):
+        return h, aux, tree_stack(outs)
 
 
 def _save_dots(ctx, op, *args, **kwargs):

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.telemetry import span
+
 COMPUTE_DTYPE = torch.bfloat16
 
 #: the value a masked logit takes before the softmax
@@ -139,10 +141,14 @@ def project(x, w):
     Where both are DTensors, ``_sharded_matmul``: the weight gathered in
     its stored dtype and cast on each rank (the reference's 2-D layout
     does the same), or, with weight gathering on, cast first and gathered
-    whole (``maybe_gather``: bf16 on the wire)."""
+    whole (``maybe_gather``: bf16 on the wire).  A cast runs inside the
+    profiler range ``weights.cast``."""
     if is_dtensor(x) and is_dtensor(w) and not _WEIGHT_GATHER:
         return _sharded_matmul(x, w)
-    w = maybe_gather(w.to(x.dtype))
+    if w.dtype != x.dtype:
+        with span("weights.cast"):
+            w = w.to(x.dtype)
+    w = maybe_gather(w)
     if is_dtensor(x) and is_dtensor(w):
         return _sharded_matmul(x, w)
     return x @ w
@@ -686,7 +692,8 @@ def attention_decode(p, x, cache_k, cache_v, pos, *, dims: AttnDims,
 
     x [B,1,D]; cache_k/v [B,S,KH,hd]; pos int write position.
     Returns (out [B,1,D], cache_k, cache_v): new caches; the caller's are
-    left as they were.
+    left as they were (the copies and the write: profiler range
+    ``decode.cache_write``).
     """
     B, _, _ = x.shape
     h, kh, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
@@ -702,10 +709,11 @@ def attention_decode(p, x, cache_k, cache_v, pos, *, dims: AttnDims,
                        rope_theta).reshape(B, 1, kh, g, hd)
         k_new = apply_rope(k_new, posv, rope_theta)
     write_at = pos % S  # ring buffer (sliding-window caches wrap)
-    cache_k = cache_k.clone()
-    cache_v = cache_v.clone()
-    cache_k[:, write_at] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, write_at] = v_new[:, 0].to(cache_v.dtype)
+    with span("decode.cache_write"):
+        cache_k = cache_k.clone()
+        cache_v = cache_v.clone()
+        cache_k[:, write_at] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, write_at] = v_new[:, 0].to(cache_v.dtype)
     k_pos = slot_positions(S, pos, x.device)[None].expand(B, S)
 
     def core(q, ck, cv, _, k_pos):

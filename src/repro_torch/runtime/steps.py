@@ -6,13 +6,13 @@ from __future__ import annotations
 import contextlib
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.models import model as M
 from repro_torch.models.blocks import tree_leaves, tree_unflatten
 from repro_torch.models.layers import full_value, is_dtensor, whole_dim
 from repro_torch.runtime import optim as O
 from repro_torch.runtime.compress import compress_decompress
+from repro_torch.telemetry import span
 
 
 def decorate_batch(cfg, dc, batch, seq_len: int | None = None):
@@ -49,13 +49,19 @@ def loss_and_grads(cfg, params, batch):
     autograd over the param leaves: the reference's ``value_and_grad``.
 
     Params may be DTensors on a mesh (the batch then too): the loss comes
-    back as a plain tensor, each gradient with its param's placements."""
+    back as a plain tensor, each gradient with its param's placements.
+    Profiler ranges: ``train_step.forward`` and ``train_step.backward``
+    (on a GPU autograd launches the backward's kernels from its own
+    device thread, so on the device's timeline this range holds only
+    the gradient's seed)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     sharded = is_dtensor(leaves[0])
     with torch.enable_grad(), _dtensor_mode(sharded):
-        loss = M.loss_fn(cfg, tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
+        with span("train_step.forward"):
+            loss = M.loss_fn(cfg, tree_unflatten(params, leaves), batch)
+        with span("train_step.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
     if sharded:     # a Partial gradient is reduced onto its param's shards
         grads = [g if g.placements == p.placements
                  else g.redistribute(p.device_mesh, p.placements)
@@ -88,7 +94,7 @@ def make_train_step(cfg, oc: O.OptConfig, *, compress_grads: bool = False,
         if compress_grads:
             grads, ef = compress_decompress(grads, opt_state.get("ef"))
             opt_state = dict(opt_state, ef=ef)
-        with record_function("train_step.update"):
+        with span("train_step.update"):
             new_params, new_state, stats = update(
                 oc, grads, {k: opt_state[k] for k in keys}, params)
         if compress_grads:

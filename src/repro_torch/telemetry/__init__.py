@@ -20,6 +20,9 @@ Sinks:
   The sharded fleet gives each replica ``MultiSink(own, fleet_sink)``
   so per-replica stats and fleet aggregates come from one write.
 
+`span(name)` marks a block of the program with a profiler range while
+``torch.profiler`` records, and costs a flag test otherwise.
+
 See docs/TELEMETRY.md for the naming scheme and the JSONL schema.
 """
 
@@ -44,6 +47,9 @@ from repro_torch.telemetry.schema import (
     TRAIN_STATS_KEYS,
     check_stats,
 )
+# the port's own (the JAX package marks no profiler ranges); ``__all__``
+# keeps the reference's names
+from repro_torch.telemetry.spans import span  # noqa: F401
 
 __all__ = [
     "Telemetry",
