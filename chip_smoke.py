@@ -32,6 +32,20 @@ Phases, each printing one JSON line:
                serving, the dense and the all-identity context, and of
                the single-context kernel on each context, each beside its
                bound.
+   ``attn_decode``  the decode-attention kernel (``kernels/attn_decode``):
+               the build of the deepseek-7b decode cell's variant, cold
+               (seconds; ``-Xptxas -v``), then the kernel against its
+               plain version at the cell's shape (B 32, S 2304, KH 32,
+               G 1, hd 128, bfloat16) at positions 2048 and 2303 within
+               ``kernel.tolerance``, which must refuse two planted faults
+               (a position dropped, the logits rounded to bfloat16), one
+               launch a call; ms cold (four copies of the caches in
+               turn: no launch finds its rows in L2) and warm (one copy)
+               beside the bound (the visible K and V rows read once at
+               3.35 TB/s), and the plain version's ms.  A split shape
+               (B 2, KH 2) against the plain version, one launch of each
+               pass; three small batches timed at the split count
+               ``splits`` picks, the memory's alone, and around them.
 4. ``serve``   ``OverlayServer`` with bank capacities 4 and 8: nine
                kernels, four tenants, 72 requests of 32 768 lanes; ``flush``,
                ``as_completed`` and ``flush_sync`` agree bit for bit with
@@ -446,9 +460,10 @@ def single_bound(ctx, B: int, itemsize: int):
 
 # ------------------------------------------------------------------ phases
 def phase_env(device) -> str:
-    from repro_torch.kernels.tmfu import kernel as tk
-    nvcc = subprocess.run([tk._find_nvcc(), "--version"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()
+    from repro_torch.kernels import _nvcc
+    nvcc = subprocess.run([_nvcc.find_nvcc("the kernels"), "--version"],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
@@ -779,6 +794,147 @@ def phase_timing(kernels, names, device) -> None:
                     "own copy of the input, L2 flushed first (cold); "
                     "warm_ms: every launch on one input",
           "rows": rows})
+
+
+#: the deepseek-7b decode cell's attention: B, S, KH, G, hd and the first
+#: and last positions a generation writes
+ATTN_CELL = (32, 2304, 32, 1, 128)
+ATTN_POSITIONS = (2048, 2303)
+#: (B, S, KH, G, hd) at pos S - 1 held to the plain version through the
+#: split kernels
+ATTN_SPLIT = (2, 2304, 2, 1, 128)
+#: small batches, where B x KH blocks cannot fill the card: timed at each
+#: split count around the one ``splits`` picks
+ATTN_SPLIT_TIMING = ((4, 2304, 8, 1, 128), (1, 4096, 8, 4, 128),
+                     (8, 2304, 8, 4, 128))
+
+
+def planted(q, ck, cv, pos, fault):
+    """``attn_decode_plain`` at ``pos`` < S, no window, with one planted
+    error: ``drop`` leaves out position 0, ``logits_bf16`` rounds the
+    logits to bfloat16."""
+    lo = 1 if fault == "drop" else 0
+    k, v = ck[:, lo:pos + 1], cv[:, lo:pos + 1]
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) \
+        * q.shape[-1] ** -0.5
+    if fault == "logits_bf16":
+        logits = logits.bfloat16().float()
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+
+
+def atol_needed(got, want) -> float:
+    """The atol, over max|want|, that ``got`` needs beside rtol 2^-7."""
+    d = (got.float() - want.float()).abs() - 2 ** -7 * want.float().abs()
+    return float(d.max()) / float(want.float().abs().max())
+
+
+def phase_attn_decode(device) -> None:
+    """The decode-attention kernel: its cold build; at the decode cell's
+    shape its error against the plain version beside the tolerance and
+    beside planted faults that the tolerance must refuse, its times
+    beside its bound and the plain version's; a split shape held to the
+    plain version; small batches timed at several split counts."""
+    from repro_torch.kernels.attn_decode import kernel as adk
+    B, S, KH, G, hd = ATTN_CELL
+    t0 = time.perf_counter()
+    adk.build_library(hd, torch.bfloat16, 1, verbose=True)
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device).manual_seed(SEED)
+
+    def tensors(B, S, KH, G, hd, copies):
+        q = torch.randn(B, 1, KH, G, hd, generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        return q, [[torch.randn(B, S, KH, hd, generator=gen, device=device,
+                                dtype=torch.bfloat16) for _ in range(2)]
+                   for _ in range(copies)]
+
+    q, copies = tensors(B, S, KH, G, hd, 4)
+    ck, cv = copies[0]
+    rows = []
+    for pos in ATTN_POSITIONS:
+        adk.reset_launch_counts()
+        got = adk.attn_decode(q, ck, cv, pos)
+        torch.cuda.synchronize()
+        assert adk.launch_counts["attn_decode"] == 1, adk.launch_counts
+        want = adk.attn_decode_plain(q, ck, cv, pos)
+        tol = adk.tolerance(want)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        faults = {}
+        for fault in ("drop", "logits_bf16"):
+            wrong = planted(q, ck, cv, pos, fault)
+            try:
+                torch.testing.assert_close(wrong.float(), want.float(), **tol)
+            except AssertionError:
+                faults[fault] = atol_needed(wrong, want)
+            else:
+                raise AssertionError(f"the tolerance takes the fault {fault}")
+        err = float((got.float() - want.float()).abs().max())
+        _, n = adk.visible(S, pos, None)
+        n_bytes = 2 * B * n * KH * hd * 2 + 2 * q.numel() * 2
+        warm = median_ms(lambda i: adk.attn_decode(q, ck, cv, pos), 30)
+        cold = median_ms(lambda i: adk.attn_decode(
+            q, *copies[i % len(copies)], pos), 30)
+        plain = median_ms(lambda i: adk.attn_decode_plain(q, ck, cv, pos),
+                          10, warmup=1)
+        rows.append({"pos": pos, "positions_read": n, "max_abs_err": err,
+                     "max_abs_want": float(want.float().abs().max()),
+                     "atol": tol["atol"], "rtol": tol["rtol"],
+                     "atol_needed": atol_needed(got, want),
+                     "faults_refused_atol_needed": faults, "ms": cold,
+                     "warm_ms": warm, "bound_ms": bound(n_bytes, 0)[0],
+                     "bound_by": "bytes", "bytes": n_bytes,
+                     "plain_ms": plain})
+    del copies, ck, cv, got, want, wrong
+    torch.cuda.empty_cache()
+
+    B, S, KH, G, hd = ATTN_SPLIT
+    q, ((ck, cv),) = tensors(B, S, KH, G, hd, 1)
+    adk.reset_launch_counts()
+    got = adk.attn_decode(q, ck, cv, S - 1)
+    torch.cuda.synchronize()
+    assert adk.launch_counts == {"attn_decode": 0, "attn_decode_qk": 1,
+                                 "attn_decode_pv": 1}, adk.launch_counts
+    want = adk.attn_decode_plain(q, ck, cv, S - 1)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **adk.tolerance(want))
+    split = {"shape": f"B={B} S={S} KH={KH} G={G} hd={hd} pos={S - 1}",
+             "splits": adk.splits(B * KH, G, S, adk._sm_count(device)),
+             "atol_needed": atol_needed(got, want)}
+
+    timing = []
+    rule = adk.splits
+    sms = adk._sm_count(device)
+    try:
+        for B, S, KH, G, hd in ATTN_SPLIT_TIMING:
+            q, copies = tensors(B, S, KH, G, hd, 8)
+            memory = rule(sms, G, S, sms)     # the memory's split alone
+            picked = rule(B * KH, G, S, sms)
+            ms = {}
+            for k in sorted({memory, max(memory, picked // 4),
+                             max(memory, picked // 2), picked, 2 * picked}):
+                k = -(-S // -(-S // k))       # no split left empty
+                adk.splits = lambda *_, k=k: k
+                ms[k] = median_ms(lambda i: adk.attn_decode(
+                    q, *copies[i % len(copies)], S - 1), 30)
+            adk.splits = rule
+            timing.append({"shape": f"B={B} S={S} KH={KH} G={G} hd={hd} "
+                                    f"pos={S - 1}",
+                           "memory_splits": memory, "picked": picked,
+                           "ms_by_splits": ms})
+    finally:
+        adk.splits = rule
+    emit({"phase": "attn_decode", "build_s": build_s,
+          "shape": f"B={ATTN_CELL[0]} S={ATTN_CELL[1]} KH={ATTN_CELL[2]} "
+                   f"G={ATTN_CELL[3]} hd={ATTN_CELL[4]} bfloat16",
+          "timing": "median of 30 launches between CUDA events behind a "
+                    "held stream; ms: four copies of the caches in turn "
+                    "(1.2 GB each: a launch finds no rows in L2); warm_ms: "
+                    "one copy; plain_ms: median of 10; split timing: eight "
+                    "copies in turn",
+          "rows": rows, "split": split, "split_timing": timing})
+    del copies, q
+    torch.cuda.empty_cache()
 
 
 def make_trace(kernels, names, n_requests, lanes, n_tenants):
@@ -1791,18 +1947,21 @@ def phase_lm(device) -> dict:
     """The LM serving path (``models/``, ``runtime/steps.py``,
     ``lm_generate``): the smoke configs against the CPU, then the
     full-width runs.  Returns the TMFU launch counts it caused (none)."""
+    from repro_torch.kernels.attn_decode import kernel as adk
     from repro_torch.kernels.tmfu import kernel as tk
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
     t0 = time.perf_counter()
     tk.reset_launch_counts()
+    adk.reset_launch_counts()
     full = [lm_full(arch, layers, device) for arch, layers in LM_FULL]
     counts = dict(tk.launch_counts)          # read right behind the main path
+    attn = dict(adk.launch_counts)
     failures = [f for row in full for f in row["failures"]]
     assert not failures, failures
     smoke = lm_smoke(device)
     emit({"phase": "lm", "seconds": time.perf_counter() - t0,
           "smoke": smoke, "full": [r["arch"] for r in full],
-          "launches": counts,
+          "launches": counts, "attn_decode_launches": attn,
           "tolerances": {"smoke_float32_rel_max": SMOKE_F32_REL,
                          "smoke_bfloat16": "cc > 0.99, top-1 >= 0.95, "
                                            "mismatches near-ties",
@@ -3239,6 +3398,7 @@ def main() -> int:
     kernels = {n: compile_program(benchmark(n)) for n in names}
     records = phase_kernels(kernels, names, device)
     phase_timing(kernels, names, device)
+    phase_attn_decode(device)
     counts, oracle = phase_serve(kernels, names, device)
     by_path = {"serve": counts,
                "fleet": phase_fleet(kernels, names, device, oracle)}

@@ -54,10 +54,6 @@ The wrappers assume what ``make_context`` and ``ContextBank`` guarantee:
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
@@ -66,6 +62,7 @@ import torch
 from repro_torch.core.dfg import Op
 from repro_torch.core.isa import IM_DEPTH, RF_DEPTH
 from repro_torch.core.vm import run_stages
+from repro_torch.kernels import _nvcc
 
 DEFAULT_BLOCK_BATCH = 512
 
@@ -94,52 +91,15 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def build_dir() -> Path:
-    """Where the library is built: ``$REPRO_TORCH_BUILD_DIR`` or a
-    ``build/`` directory beside this module (git-ignored)."""
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    return Path(env) if env else Path(__file__).resolve().parent / "build"
-
-
-def _find_nvcc() -> str:
-    cands = [shutil.which("nvcc")]
-    for var in ("CUDA_HOME", "CUDA_PATH"):
-        if os.environ.get(var):
-            cands.append(os.path.join(os.environ[var], "bin", "nvcc"))
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if c and os.path.isfile(c):
-            return c
-    raise RuntimeError("nvcc not found (looked on PATH, in $CUDA_HOME and "
-                       "in /usr/local/cuda): the TMFU kernel cannot be built")
-
-
 def build_library(verbose: bool = False) -> Path:
     """Compile ``csrc/tmfu.cu`` if no up-to-date library exists.
 
     The library's name carries a hash of the source and the flags, so an
     edited source (or a changed flag) never loads a stale build.
     """
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = build_dir()
-    lib_path = out_dir / f"libtmfu_{tag}.so"
-    if lib_path.exists():
-        return lib_path
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".libtmfu_{tag}.{os.getpid()}.so"
-    cmd = [_find_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, lib_path)            # atomic: concurrent builds agree
-    return lib_path
+    return _nvcc.build(SOURCE, NVCC_FLAGS, "tmfu",
+                       _nvcc.build_dir(SOURCE.parent.parent),
+                       "the TMFU kernel", verbose)
 
 
 def load_library(verbose: bool = False):

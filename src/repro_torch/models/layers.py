@@ -10,6 +10,8 @@ layer can actually see.
 
 Attention is einsum + softmax, as in the reference; the logits are taken
 in f32 from upcast q and k (the reference's ``preferred_element_type``).
+A decode step's attention over its cache is ``kernels.attn_decode``: the
+same arithmetic on the CPU, a hand-written kernel on the card.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.attn_decode import attn_decode
 from repro_torch.telemetry import span
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -676,16 +679,6 @@ def _local_layout(q) -> list:
     return out
 
 
-def slot_positions(S: int, pos: int, device) -> torch.Tensor:
-    """Absolute position held by each slot of a ring cache of ``S`` slots
-    once position ``pos`` has been written at slot ``pos % S`` (slots not
-    written yet come out negative)."""
-    write_at, wraps = pos % S, pos // S
-    slot = torch.arange(S, device=device)
-    return torch.where(slot <= write_at, wraps * S + slot,
-                       (wraps - 1) * S + slot)
-
-
 def attention_decode(p, x, cache_k, cache_v, pos, *, dims: AttnDims,
                      window=None, rope_theta=10000.0, use_rope=True):
     """Single-token decode with a cache append.
@@ -693,7 +686,9 @@ def attention_decode(p, x, cache_k, cache_v, pos, *, dims: AttnDims,
     x [B,1,D]; cache_k/v [B,S,KH,hd]; pos int write position.
     Returns (out [B,1,D], cache_k, cache_v): new caches; the caller's are
     left as they were (the copies and the write: profiler range
-    ``decode.cache_write``).
+    ``decode.cache_write``).  The attention over the cache is
+    ``kernels.attn_decode`` (range ``decode.attn_core``): on a CUDA
+    tensor a kernel that reads the cache once, in its stored type.
     """
     B, _, _ = x.shape
     h, kh, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
@@ -714,18 +709,12 @@ def attention_decode(p, x, cache_k, cache_v, pos, *, dims: AttnDims,
         cache_v = cache_v.clone()
         cache_k[:, write_at] = k_new[:, 0].to(cache_k.dtype)
         cache_v[:, write_at] = v_new[:, 0].to(cache_v.dtype)
-    k_pos = slot_positions(S, pos, x.device)[None].expand(B, S)
 
-    def core(q, ck, cv, _, k_pos):
-        logits = _logits(q, ck.to(q.dtype), hd ** -0.5)
-        valid = (k_pos <= pos) & (k_pos >= 0)
-        if window is not None:
-            valid &= k_pos > pos - window
-        logits = torch.where(valid[:, None, None, None], logits, NEG_INF)
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        return torch.einsum("bhgqk,bkhd->bqhgd", probs, cv.to(x.dtype))
+    def core(q, ck, cv, _, __):
+        return attn_decode(q, ck, cv, pos, window)
 
-    out = on_local_heads(core, q, cache_k, cache_v, None, k_pos)
+    with span("decode.attn_core"):
+        out = on_local_heads(core, q, cache_k, cache_v, None, None)
     out = out.reshape(B, 1, h * hd)
     return linear(p["wo"], out), cache_k, cache_v
 

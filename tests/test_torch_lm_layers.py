@@ -33,6 +33,7 @@ import repro_torch.models.layers as TL
 import repro_torch.models.ssm as TS
 from repro.configs import get_smoke_config as jax_smoke
 from repro_torch.configs import get_smoke_config as torch_smoke
+from repro_torch.kernels.attn_decode import slot_positions
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
@@ -184,10 +185,10 @@ def test_attention_decode_past_a_wrap(window):
 
 
 def test_slot_positions_ring():
-    got = TL.slot_positions(8, 20, "cpu").tolist()
+    got = slot_positions(8, 20, "cpu").tolist()
     assert got == [16, 17, 18, 19, 20, 13, 14, 15]
-    assert TL.slot_positions(8, 3, "cpu").tolist()[:4] == [0, 1, 2, 3]
-    assert all(p < 0 for p in TL.slot_positions(8, 3, "cpu").tolist()[4:])
+    assert slot_positions(8, 3, "cpu").tolist()[:4] == [0, 1, 2, 3]
+    assert all(p < 0 for p in slot_positions(8, 3, "cpu").tolist()[4:])
 
 
 @pytest.mark.parametrize("S", [12, 40])

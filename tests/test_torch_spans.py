@@ -139,6 +139,7 @@ def test_a_decode_step_records_its_ranges(dense):
     got, n = ranges(lambda: decode(params, caches, tok, 6))
     layers = cfg.stacks[0].count
     assert n.get("decode.cache_write") == layers
+    assert n.get("decode.attn_core") == layers
     assert n.get("decode.cache_stack") == 1
     # q, k, v, o, up, gate, down a layer, then the head
     assert n.get("weights.cast") == 7 * layers + 1
