@@ -46,6 +46,22 @@ Phases, each printing one JSON line:
                (B 2, KH 2) against the plain version, one launch of each
                pass; three small batches timed at the split count
                ``splits`` picks, the memory's alone, and around them.
+   ``ssm_decode``  the Mamba2 decode kernels (``kernels/ssm_decode``): the
+               build, then at the zamba2 cell's batch (B 16) and the
+               widths of Zamba2-7B (H 112, P 64, N 64, G 2, the norm per
+               group) and mamba2-2.7b (H 80, P 64, N 128, G 1) the step
+               (``ssm_step``) against ``models.ssm._step_plain`` (float32
+               activations, the conv in the cache's bf16) within
+               ``kernel.tolerance``, which must refuse planted
+               faults (the skip term dropped, the conv bias dropped, the
+               norm over the row where it is per group); ``MambaStack``
+               over three layers (norm with the residual add and a site's
+               output, step) against the plain versions layer by layer;
+               the norm (``rms_norm``) on rows of 3584 (plus a site's
+               output) and 7168 against ``layers.rms_norm``, which must
+               refuse the gain or the added output dropped.  ms cold and
+               warm beside the bound of the bytes each must move, the
+               plain versions' ms and ``F.rms_norm``'s.
 4. ``serve``   ``OverlayServer`` with bank capacities 4 and 8: nine
                kernels, four tenants, 72 requests of 32 768 lanes; ``flush``,
                ``as_completed`` and ``flush_sync`` agree bit for bit with
@@ -100,8 +116,9 @@ Phases, each printing one JSON line:
                caches), one decode step on the CPU's caches, in float32
                mode (1e-4 relative) and bfloat16 mode (the reference's
                criterion), and a TF32 control.  The path launches none of
-               the TMFU kernels: counters set to 0 before the full-width
-               runs, read after.
+               the TMFU kernels, and the Mamba2 decode kernels in
+               mamba2-2.7b's decode: counters set to 0 before the
+               full-width runs, read after.
 8. ``train``   the training path (``runtime/optim.py``, ``compress.py``,
                ``steps.make_train_step``, ``data/``,
                ``distributed/checkpoint.py``, ``launch/train.py``,
@@ -185,7 +202,8 @@ Phases, each printing one JSON line:
                context switch against rebuilding the spatial design.
 10. ``kernels`` one line with every kernel's launches (summed over the
                serve, fleet, edge, lm, train, mesh, examples, pipeline and
-               dryrun paths, and by path),
+               dryrun paths, and by path; the Mamba2 decode kernels' of
+               the lm path),
                error, time, plain time and bound; the card's line from
                nvidia-smi; and the verdict as the last line.
 
@@ -935,6 +953,269 @@ def phase_attn_decode(device) -> None:
           "rows": rows, "split": split, "split_timing": timing})
     del copies, q
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- ssm decode
+#: the zamba2 cell's decode batch, at which both mixers are held and timed
+SSM_BATCH = 16
+#: layers of the stack held, layer by layer, through ``MambaStack``
+SSM_STACK_LAYERS = 3
+#: input sets a cold timing takes in turn: each set's SSM state alone is
+#: 29.4 MB (Zamba2-7B) or 41.9 MB (mamba2-2.7b), so a launch finds none
+#: of its inputs in the 50 MB L2
+SSM_COPIES = 8
+#: input sets a cold timing of the norm takes in turn (117 MB in all)
+NORM_COPIES = 512
+#: rows the norm kernel is timed on: a Mamba layer's input (with the
+#: residual add and a site's output) and a site's concat of its input and
+#: the embedding
+NORM_WIDTHS = ((3584, True), (7168, False))
+
+
+def ssm_models():
+    """(name, SSMDims, norm eps) of the two mixers the decode kernels
+    serve: Zamba2-7B's (the zamba2 cell's) and mamba2-2.7b's (the lm
+    phase's full-width run)."""
+    from repro_torch.configs import get_config, zamba2_7b_instruct
+    return [(name, cfg.ssm, cfg.norm_eps)
+            for name, cfg in (("zamba2-7b-instruct",
+                               zamba2_7b_instruct.config()),
+                              ("mamba2-2.7b", get_config("mamba2-2.7b")))]
+
+
+def ssm_inputs(dims, lead, device, gen):
+    """A stack of ``lead`` mixers' params between the projections (the
+    published init where ``dt_limits`` is set; conv bias and gains drawn
+    around their init), and each layer's bf16 in-projection of one token,
+    bf16 conv state and float32 SSM state at ``SSM_BATCH`` rows."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    p = S.init_mamba2(L.Init.torch(gen, device), lead, dims)
+    p = {k: v for k, v in p.items() if torch.is_tensor(v)} | {
+        "norm": {"g": 1 + 0.1 * torch.randn(
+            p["norm"]["g"].shape, generator=gen, device=device)}}
+    p["conv_b"] = 0.1 * torch.randn(p["conv_b"].shape, generator=gen,
+                                    device=device)
+    B, din, N, G, H = (SSM_BATCH, dims.d_inner, dims.d_state, dims.n_groups,
+                       dims.n_heads)
+    C = din + 2 * G * N
+
+    def draw(*shape, dtype=torch.bfloat16):
+        return torch.randn(lead + shape, generator=gen, device=device) \
+            .to(dtype)
+    return (p, draw(B, din + C + H), draw(B, dims.d_conv - 1, C),
+            draw(B, H, N, dims.head_dim, dtype=torch.float32))
+
+
+def ssm_step_bytes(p, proj, conv, ssm, y) -> int:
+    """What a step must move at least: the in-projection, the params and
+    both states read, the output and both new states written."""
+    leaves = [v for v in p.values() if torch.is_tensor(v)] + [p["norm"]["g"]]
+    return (sum(t.numel() * t.element_size() for t in [proj, *leaves])
+            + 2 * (conv.numel() * conv.element_size()
+                   + ssm.numel() * ssm.element_size())
+            + y.numel() * y.element_size())
+
+
+def atol_needed_rel(got, want, tol) -> float:
+    """The atol over max|want| that ``got`` needs beside ``tol``'s rtol."""
+    d = (got.float() - want.float()).abs() - tol["rtol"] * want.float().abs()
+    return max(0.0, float(d.max()) / float(want.float().abs().max()))
+
+
+def refused(wrong, want, tol, what) -> float:
+    """The atol over max|want| that a planted fault ``wrong`` needs beside
+    ``tol``'s rtol; raises if ``tol`` takes it."""
+    try:
+        torch.testing.assert_close(wrong.float(), want.float(), **tol)
+    except AssertionError:
+        return atol_needed_rel(wrong, want, tol)
+    raise AssertionError(f"the tolerance takes the fault {what}")
+
+
+def ssm_step_faults(p, proj, conv, ssm, dims, eps):
+    """The step's plain version (float32 activations) with one planted
+    error each: the
+    skip term ``D x`` dropped, the conv bias dropped, and where the norm
+    is taken per group, over the whole row."""
+    import dataclasses
+    from repro_torch.models import ssm as S
+    f32 = (proj.float(), conv, ssm)
+    out = {"skip_dropped": S._step_plain(
+               p | {"D": torch.zeros_like(p["D"])}, *f32, dims,
+               torch.float32, eps)[0],
+           "conv_bias_dropped": S._step_plain(
+               p | {"conv_b": torch.zeros_like(p["conv_b"])}, *f32, dims,
+               torch.float32, eps)[0]}
+    if dims.group_norm:
+        out["norm_over_row"] = S._step_plain(
+            p, *f32, dataclasses.replace(dims, group_norm=False),
+            torch.float32, eps)[0]
+    return out
+
+
+def check_stack(dims, eps, device, gen) -> dict:
+    """``MambaStack`` over ``SSM_STACK_LAYERS`` layers: each layer's norm
+    (an out-projection's output added to the stream from the second
+    layer on, a site's output beside it at the second) and step, held to
+    the plain versions on the same inputs."""
+    from repro_torch.kernels.ssm_decode import kernel as sdk
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    n = SSM_STACK_LAYERS
+    p, proj, conv, ssm = ssm_inputs(dims, (n,), device, gen)
+    D = dims.d_model
+    ln = 1 + 0.1 * torch.randn(n, D, generator=gen, device=device)
+    h = torch.randn(SSM_BATCH, 1, D, generator=gen, device=device).bfloat16()
+    h0 = h.clone()
+    run = sdk.MambaStack(p, ln, {"conv": conv, "ssm": ssm}, dims, eps, h)
+    need = {"x": 0.0, "y": 0.0, "ssm": 0.0}
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=device).bfloat16()
+    for i in range(n):
+        add = draw(SSM_BATCH, D) if i else None
+        extra = draw(SSM_BATCH, 1, D) if i == 1 else None
+        want_h = h0 if add is None else h0 + add[:, None]
+        v = want_h if extra is None else want_h + extra
+        want_x = L.rms_norm({"g": ln[i]}, v.float(), eps)[:, 0]
+        x = run.norm(i, h, add, extra)
+        torch.cuda.synchronize()
+        assert torch.equal(h, want_h), f"layer {i}: the residual add"
+        tol = sdk.tolerance(torch.bfloat16, want_x)
+        torch.testing.assert_close(x.float(), want_x, **tol)
+        need["x"] = max(need["x"], atol_needed_rel(x, want_x, tol))
+        pi = {k: v[i] for k, v in p.items() if torch.is_tensor(v)} | {
+            "norm": {"g": p["norm"]["g"][i]}}
+        y = run.step(i, proj[i])
+        torch.cuda.synchronize()
+        want_y, _, want_ssm = S._step_plain(
+            pi, proj[i].float(), conv[i], ssm[i], dims, torch.float32,
+            eps)
+        want_conv = S._step_plain(pi, proj[i], conv[i], ssm[i], dims,
+                                  torch.bfloat16, eps)[1]
+        tol = sdk.tolerance(torch.bfloat16, want_y)
+        torch.testing.assert_close(y.float(), want_y, **tol)
+        need["y"] = max(need["y"], atol_needed_rel(y, want_y, tol))
+        assert torch.equal(run.conv[i], want_conv), f"layer {i}: conv state"
+        tol = sdk.tolerance(torch.float32, want_ssm)
+        torch.testing.assert_close(run.ssm[i], want_ssm, **tol)
+        need["ssm"] = max(need["ssm"], atol_needed_rel(run.ssm[i], want_ssm,
+                                                       tol))
+        h0 = want_h
+    return {"layers": n, "atol_needed": need}
+
+
+def phase_ssm_decode(device) -> dict:
+    """The Mamba2 decode kernels (``kernels/ssm_decode``): their build;
+    at the zamba2 cell's batch and both mixers' widths the step
+    (``ssm_step``) and the norm (``rms_norm``) against their plain
+    versions within ``kernel.tolerance``, which must refuse planted
+    faults, and ``MambaStack`` layer by layer; ms cold and warm beside the
+    bound of the bytes each must move, the plain versions' ms, and the
+    library's fused RMSNorm (``F.rms_norm``).  Returns the two kernels'
+    records for the ``kernels`` line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssm_decode import kernel as sdk
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    t0 = time.perf_counter()
+    sdk.build_library(verbose=True)
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device).manual_seed(SEED)
+    steps = []
+    for name, dims, eps in ssm_models():
+        sets = [ssm_inputs(dims, (), device, gen)
+                for _ in range(SSM_COPIES)]
+        p, proj, conv, ssm = sets[0]
+        sdk.reset_launch_counts()
+        y, conv_new, ssm_new = sdk.ssm_step(p, proj, conv, ssm, dims, eps)
+        torch.cuda.synchronize()
+        assert sdk.launch_counts["ssm_decode_step"] == 1, sdk.launch_counts
+        want_y, _, want_ssm = S._step_plain(p, proj.float(), conv, ssm,
+                                            dims, torch.float32, eps)
+        tol = sdk.tolerance(torch.bfloat16, want_y)
+        torch.testing.assert_close(y.float(), want_y, **tol)
+        assert torch.equal(conv_new, S._step_plain(
+            p, proj, conv, ssm, dims, torch.bfloat16, eps)[1])
+        tol_ssm = sdk.tolerance(torch.float32, want_ssm)
+        torch.testing.assert_close(ssm_new, want_ssm, **tol_ssm)
+        faults = {f: refused(w, want_y, tol, f) for f, w in
+                  ssm_step_faults(p, proj, conv, ssm, dims, eps).items()}
+        stack = check_stack(dims, eps, device, gen)
+        n_bytes = ssm_step_bytes(p, proj, conv, ssm, y)
+        warm = median_ms(lambda i: sdk.ssm_step(p, proj, conv, ssm, dims,
+                                                eps), 30)
+        cold = median_ms(lambda i: sdk.ssm_step(
+            *sets[i % SSM_COPIES], dims, eps), 30)
+        plain = median_ms(lambda i: S._step_plain(
+            p, proj, conv, ssm, dims, torch.bfloat16, eps), 10, warmup=1)
+        steps.append({
+            "model": name, "shape": f"B={SSM_BATCH} H={dims.n_heads} "
+            f"P={dims.head_dim} N={dims.d_state} G={dims.n_groups} "
+            f"group_norm={dims.group_norm} bf16 act and conv state",
+            "atol_needed": {"y": atol_needed_rel(y, want_y, tol),
+                            "ssm": atol_needed_rel(ssm_new, want_ssm,
+                                                   tol_ssm)},
+            "atol": tol["atol"] / float(want_y.abs().max()),
+            "rtol": tol["rtol"], "faults_refused_atol_needed": faults,
+            "stack": stack, "ms": cold, "warm_ms": warm,
+            "bound_ms": bound(n_bytes, 0)[0], "bound_by": "bytes",
+            "bytes": n_bytes, "plain_ms": plain})
+        del sets, p, proj, conv, ssm
+        torch.cuda.empty_cache()
+
+    norms = []
+    for D, with_adds in NORM_WIDTHS:
+        def draw():
+            return torch.randn(SSM_BATCH, 1, D, generator=gen,
+                               device=device).bfloat16()
+        g = 1 + 0.1 * torch.randn(D, generator=gen, device=device)
+        sets = [(draw(), draw() if with_adds else None)
+                for _ in range(NORM_COPIES)]
+        x, extra = sets[0]
+        got = sdk.rms_norm(x, g, 1e-5, extra)
+        v = x if extra is None else x + extra
+        want = L.rms_norm({"g": g}, v.float(), 1e-5)
+        tol = sdk.tolerance(torch.bfloat16, want)
+        torch.testing.assert_close(got.float(), want, **tol)
+        faults = {"gain_dropped": refused(
+            L.rms_norm({"g": torch.ones_like(g)}, v.float(), 1e-5), want,
+            tol, "gain_dropped")}
+        if extra is not None:
+            faults["extra_dropped"] = refused(
+                L.rms_norm({"g": g}, x.float(), 1e-5), want, tol,
+                "extra_dropped")
+        g16 = g.bfloat16()
+        n_bytes = (2 + (extra is not None)) * x.numel() * 2 + g.numel() * 4
+        norms.append({
+            "shape": f"B={SSM_BATCH} rows of {D} bf16"
+                     + (", plus a site's output" if with_adds else ""),
+            "atol_needed": atol_needed_rel(got, want, tol),
+            "faults_refused_atol_needed": faults,
+            "ms": median_ms(lambda i: sdk.rms_norm(
+                sets[-1 - i][0], g, 1e-5, sets[-1 - i][1]), 30, warmup=0),
+            "warm_ms": median_ms(lambda i: sdk.rms_norm(x, g, 1e-5, extra),
+                                 30),
+            "bound_ms": bound(n_bytes, 0)[0], "bound_by": "bytes",
+            "bytes": n_bytes,
+            "plain_ms": median_ms(lambda i: L.rms_norm(
+                {"g": g}, x if extra is None else x + extra, 1e-5), 30),
+            "library_ms": median_ms(lambda i: F.rms_norm(
+                x if extra is None else x + extra, (D,), g16, 1e-5), 30)})
+    emit({"phase": "ssm_decode", "build_s": build_s,
+          "timing": "median of 30 launches between CUDA events behind a "
+                    "held stream; ms: input sets in turn (8 for the step, "
+                    "no launch finds its state in L2; 512 for the norm); "
+                    "warm_ms: one set; plain_ms: the plain version on the "
+                    "card (median of 10 for the step); library_ms: "
+                    "F.rms_norm, one fused call, its gain rounded to "
+                    "bf16 (a float32 gain is not fused), the adds before",
+          "steps": steps, "norms": norms})
+    return [{"name": "ssm_decode_step", "wrapper": "ssm_step, "
+             "MambaStack.step", "rows": steps},
+            {"name": "rms_norm", "wrapper": "rms_norm, MambaStack.norm",
+             "rows": norms}]
 
 
 def make_trace(kernels, names, n_requests, lanes, n_tenants):
@@ -1943,32 +2224,38 @@ def lm_full(arch, layers, device) -> dict:
     return out
 
 
-def phase_lm(device) -> dict:
+def phase_lm(device) -> tuple[dict, dict]:
     """The LM serving path (``models/``, ``runtime/steps.py``,
     ``lm_generate``): the smoke configs against the CPU, then the
-    full-width runs.  Returns the TMFU launch counts it caused (none)."""
+    full-width runs.  Returns the TMFU launch counts it caused (none) and
+    the Mamba2 decode kernels' (mamba2-2.7b's decode)."""
     from repro_torch.kernels.attn_decode import kernel as adk
+    from repro_torch.kernels.ssm_decode import kernel as sdk
     from repro_torch.kernels.tmfu import kernel as tk
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
     t0 = time.perf_counter()
     tk.reset_launch_counts()
     adk.reset_launch_counts()
+    sdk.reset_launch_counts()
     full = [lm_full(arch, layers, device) for arch, layers in LM_FULL]
     counts = dict(tk.launch_counts)          # read right behind the main path
     attn = dict(adk.launch_counts)
+    ssm = dict(sdk.launch_counts)
+    assert ssm["ssm_decode_step"] > 0 and ssm["rms_norm"] > 0, ssm
     failures = [f for row in full for f in row["failures"]]
     assert not failures, failures
     smoke = lm_smoke(device)
     emit({"phase": "lm", "seconds": time.perf_counter() - t0,
           "smoke": smoke, "full": [r["arch"] for r in full],
           "launches": counts, "attn_decode_launches": attn,
+          "ssm_decode_launches": ssm,
           "tolerances": {"smoke_float32_rel_max": SMOKE_F32_REL,
                          "smoke_bfloat16": "cc > 0.99, top-1 >= 0.95, "
                                            "mismatches near-ties",
                          "full_rel_l2": FULL_REL_L2,
                          "full_median_vs_bf16_forward": DECODE_VS_FORWARD,
                          "full_router_cc": ROUTER_CC}})
-    return counts
+    return counts, ssm
 
 
 # ------------------------------------------------------------- training path
@@ -3399,11 +3686,12 @@ def main() -> int:
     records = phase_kernels(kernels, names, device)
     phase_timing(kernels, names, device)
     phase_attn_decode(device)
+    ssm_records = phase_ssm_decode(device)
     counts, oracle = phase_serve(kernels, names, device)
     by_path = {"serve": counts,
                "fleet": phase_fleet(kernels, names, device, oracle)}
     by_path["edge"] = phase_edge(kernels, names, device, oracle)
-    by_path["lm"] = phase_lm(device)
+    by_path["lm"], ssm_lm = phase_lm(device)
     by_path["train"], unsharded = phase_train(kernels, names, device, oracle)
     by_path["mesh"], meshed = phase_mesh(device, unsharded)
     by_path["examples"] = phase_examples()
@@ -3414,11 +3702,14 @@ def main() -> int:
     for name, rec in records.items():
         rec["launches"] = sum(c[name] for c in by_path.values())
         rec["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+    for rec in ssm_records:
+        rec["launches"] = ssm_lm[rec["name"]]
+        rec["launches_by_path"] = {"lm": ssm_lm[rec["name"]]}
     torch.cuda.synchronize()
     if "--profile" in sys.argv[1:]:
         phase_profile(kernels, names, device)
 
-    emit({"kernels": list(records.values())})
+    emit({"kernels": list(records.values()) + ssm_records})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,6 +3,12 @@ every 6th position (weights time-multiplexed across 13 call sites — the
 paper's TM-FU idea at the weight level).  [arXiv:2411.15242; unverified]
 
 81L d_model=3584 32H (GQA kv=32) d_ff=14336 vocab=32000 ssm_state=64.
+
+This is the JAX reference's stand-in, held equal to it by the parity
+tests: one shared block on the residual, head dim 112, one SSM group, no
+adapters.  The published model (two shared blocks on concat(h,
+embedding), head dim 224, per-site adapters and linears, two groups) is
+``configs/zamba2_7b_instruct.py``, kept out of the registry.
 """
 
 from repro_torch.models import (BlockSpec, ModelConfig, SSMDims,

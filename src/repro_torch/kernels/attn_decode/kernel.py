@@ -36,7 +36,7 @@ from repro_torch.kernels import _nvcc
 
 #: head dims the kernel is built for: those of the repo's configs and
 #: their smoke configs
-HEAD_DIMS = (16, 32, 64, 112, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 224, 256)
 #: cache types the kernel reads, with the ``-DAD_KT`` code
 CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: query types (also the type of the probabilities and of the output)
@@ -83,14 +83,15 @@ def visible(S: int, pos: int, window) -> tuple[int, int]:
 
 
 # ------------------------------------------------------------------ plain
-def attn_decode_plain(q, cache_k, cache_v, pos: int, window=None):
+def attn_decode_plain(q, cache_k, cache_v, pos: int, window=None,
+                      scale=None):
     """The attention core on plain tensors: out [B, 1, KH, G, hd] in q's
-    type."""
+    type; ``scale`` of the logits, default hd^-0.5."""
     B, S, hd = q.shape[0], cache_k.shape[1], q.shape[-1]
     k_pos = slot_positions(S, pos, q.device)[None].expand(B, S)
     k = cache_k.to(q.dtype)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) \
-        * hd ** -0.5
+        * (hd ** -0.5 if scale is None else scale)
     valid = (k_pos <= pos) & (k_pos >= 0)
     if window is not None:
         valid &= k_pos > pos - window
@@ -218,13 +219,14 @@ def check_inputs(q, cache_k, cache_v) -> None:
 
 
 # ---------------------------------------------------------------- wrapper
-def attn_decode(q, cache_k, cache_v, pos: int, window=None):
+def attn_decode(q, cache_k, cache_v, pos: int, window=None, scale=None):
     """One decode token's attention: q [B, 1, KH, G, hd] at position
-    ``pos`` over the ring caches [B, S, KH, hd] (``pos`` already written);
-    returns [B, 1, KH, G, hd] in q's type.  A CUDA tensor goes through the
-    kernel, or raises; a CPU tensor through ``attn_decode_plain``."""
+    ``pos`` over the ring caches [B, S, KH, hd] (``pos`` already written),
+    the logits times ``scale`` (default hd^-0.5); returns [B, 1, KH, G,
+    hd] in q's type.  A CUDA tensor goes through the kernel, or raises; a
+    CPU tensor through ``attn_decode_plain``."""
     if not q.is_cuda:
-        return attn_decode_plain(q, cache_k, cache_v, pos, window)
+        return attn_decode_plain(q, cache_k, cache_v, pos, window, scale)
     check_inputs(q, cache_k, cache_v)
     q = q.contiguous()
     B, _, KH, G, hd = q.shape
@@ -245,7 +247,8 @@ def attn_decode(q, cache_k, cache_v, pos: int, window=None):
             q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
             out.data_ptr(), None if ws is None else ws.data_ptr(),
             None if tickets is None else tickets.data_ptr(), B, S, KH, G, lo,
-            n, n_split, int(q.dtype == torch.bfloat16), hd ** -0.5,
+            n, n_split, int(q.dtype == torch.bfloat16),
+            hd ** -0.5 if scale is None else scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"attn_decode: launch failed with CUDA error "

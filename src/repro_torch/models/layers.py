@@ -451,12 +451,15 @@ class AttnDims:
     head_dim: int
 
 
-def init_attention(init: Init, lead, d_model, dims: AttnDims):
+def init_attention(init: Init, lead, d_model, dims: AttnDims, d_in=None):
+    """q, k, v from ``d_in`` (default ``d_model``) wide inputs, o back to
+    ``d_model``."""
     h, kh, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
+    d_in = d_in or d_model
     return {
-        "wq": init_linear(init, lead, d_model, h * hd),
-        "wk": init_linear(init, lead, d_model, kh * hd),
-        "wv": init_linear(init, lead, d_model, kh * hd),
+        "wq": init_linear(init, lead, d_in, h * hd),
+        "wk": init_linear(init, lead, d_in, kh * hd),
+        "wv": init_linear(init, lead, d_in, kh * hd),
         "wo": init_linear(init, lead, h * hd, d_model,
                           scale=(h * hd) ** -0.5),
     }
@@ -481,9 +484,10 @@ def _logits(q, k, scale):
     return torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
 
 
-def _sdpa(q, k, v, q_pos, k_pos, causal, window):
-    """Direct attention on small blocks. q [B,Sq,KH,G,hd], k/v [B,Sk,KH,hd]."""
-    scale = q.shape[-1] ** -0.5
+def _sdpa(q, k, v, q_pos, k_pos, causal, window, scale=None):
+    """Direct attention on small blocks. q [B,Sq,KH,G,hd], k/v [B,Sk,KH,hd];
+    ``scale`` of the logits, default hd^-0.5."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     logits = _logits(q, k, scale)
     mask = _mask(q_pos, k_pos, causal, window)  # [B?,Sq,Sk] broadcast
     logits = torch.where(mask[:, None, None], logits, NEG_INF)
@@ -491,8 +495,10 @@ def _sdpa(q, k, v, q_pos, k_pos, causal, window):
     return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
 
 
-def _flash(q, k, v, q_pos, k_pos, causal, window, kv_chunk=1024):
-    """Online-softmax over kv chunks. Shapes as _sdpa; returns [B,Sq,KH,G,hd]."""
+def _flash(q, k, v, q_pos, k_pos, causal, window, scale=None,
+           kv_chunk=1024):
+    """Online-softmax over kv chunks. Shapes and scale as _sdpa; returns
+    [B,Sq,KH,G,hd]."""
     B, Sq, KH, G, hd = q.shape
     Sk = k.shape[1]
     nkc = -(-Sk // kv_chunk)
@@ -501,7 +507,7 @@ def _flash(q, k, v, q_pos, k_pos, causal, window, kv_chunk=1024):
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         k_pos = F.pad(k_pos, (0, pad), value=PAD_POS)
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     m = torch.full((B, KH, G, Sq), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, KH, G, Sq), dtype=torch.float32, device=q.device)
@@ -523,7 +529,8 @@ def _flash(q, k, v, q_pos, k_pos, causal, window, kv_chunk=1024):
     return out.permute(0, 3, 1, 2, 4)  # [B,Sq,KH,G,hd]
 
 
-def _flash_windowed(q, k, v, q_pos, k_pos, causal, window, q_chunk=512):
+def _flash_windowed(q, k, v, q_pos, k_pos, causal, window, scale=None,
+                    q_chunk=512):
     """Sliding-window attention visiting only reachable kv (causal).
 
     Loops over q chunks; for each, slices the kv span [start, start+span)
@@ -546,14 +553,15 @@ def _flash_windowed(q, k, v, q_pos, k_pos, causal, window, q_chunk=512):
         start = max(c * q_chunk - window, 0)
         ks = slice(start, start + span)
         outs.append(_sdpa(q[:, qs], kpad[:, ks], vpad[:, ks], q_pos[:, qs],
-                          kp_pad[:, ks], causal, window))
+                          kp_pad[:, ks], causal, window, scale))
     return torch.cat(outs, 1)[:, :Sq]
 
 
 def attention_apply(p, x, *, dims: AttnDims, positions, causal=True,
                     window=None, rope_theta=10000.0, kv=None, kv_positions=None,
-                    use_rope=True, flash_threshold=2048):
-    """Self- or cross-attention.  x [B,S,D]; kv (xk_src) for cross-attn."""
+                    use_rope=True, flash_threshold=2048, scale=None):
+    """Self- or cross-attention.  x [B,S,D]; kv (xk_src) for cross-attn;
+    ``scale`` of the logits, default hd^-0.5."""
     B, S, _ = x.shape
     h, kh, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
     g = h // kh
@@ -574,7 +582,7 @@ def attention_apply(p, x, *, dims: AttnDims, positions, causal=True,
     else:
         core = _sdpa
     out = on_local_heads(lambda q, k, v, qp, kp: core(q, k, v, qp, kp,
-                                                      causal, window),
+                                                      causal, window, scale),
                          q, k, v, positions, kpos)
     out = out.reshape(B, S, h * hd)
     return linear(p["wo"], out)
@@ -680,10 +688,12 @@ def _local_layout(q) -> list:
 
 
 def attention_decode(p, x, cache_k, cache_v, pos, *, dims: AttnDims,
-                     window=None, rope_theta=10000.0, use_rope=True):
+                     window=None, rope_theta=10000.0, use_rope=True,
+                     scale=None):
     """Single-token decode with a cache append.
 
-    x [B,1,D]; cache_k/v [B,S,KH,hd]; pos int write position.
+    x [B,1,D]; cache_k/v [B,S,KH,hd]; pos int write position; ``scale``
+    of the logits, default hd^-0.5.
     Returns (out [B,1,D], cache_k, cache_v): new caches; the caller's are
     left as they were (the copies and the write: profiler range
     ``decode.cache_write``).  The attention over the cache is
@@ -711,7 +721,7 @@ def attention_decode(p, x, cache_k, cache_v, pos, *, dims: AttnDims,
         cache_v[:, write_at] = v_new[:, 0].to(cache_v.dtype)
 
     def core(q, ck, cv, _, __):
-        return attn_decode(q, ck, cv, pos, window)
+        return attn_decode(q, ck, cv, pos, window, scale)
 
     with span("decode.attn_core"):
         out = on_local_heads(core, q, cache_k, cache_v, None, None)

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.core.vm import resolve_device
 from repro_torch.models import blocks as B
-from repro_torch.models.blocks import BlockSpec, StackSpec
+from repro_torch.models.blocks import BlockSpec, SharedBlocks, StackSpec
 from repro_torch.models.layers import (COMPUTE_DTYPE, Init,
                                        contiguous_stride, init_norm,
                                        is_dtensor, project, rms_norm, rows)
@@ -68,6 +68,14 @@ class ModelConfig:
     # attention family flags
     full_attention: bool = True   # False => sub-quadratic (ssm/hybrid/local)
     aux_loss_weight: float = 0.01
+    # Zamba2's (out of the repr, which the registry's configs share with
+    # the reference's): its shared transformer blocks between the (mamba)
+    # layers; the head the embedding's transpose (no "head" param); the
+    # embedding left unscaled (the reference multiplies by sqrt(d_model))
+    shared: Optional[SharedBlocks] = dataclasses.field(default=None,
+                                                       repr=False)
+    tie_embed: bool = dataclasses.field(default=False, repr=False)
+    embed_scale: bool = dataclasses.field(default=True, repr=False)
 
     @property
     def n_layers(self) -> int:
@@ -113,17 +121,24 @@ def dense_stacks(n_layers: int, *, window_pattern=None, moe=False,
 
 # ----------------------------------------------------------------- params
 def _init_params(cfg: ModelConfig, init: Init) -> dict:
-    p = {
-        "embed": init.normal((cfg.vocab, cfg.d_model), 0.02),
-        "head": init.normal((cfg.d_model, cfg.vocab), cfg.d_model ** -0.5),
-        "final_norm": init_norm(init, (), cfg.d_model),
-        "stacks": [B.init_stack(init, cfg, s) for s in cfg.stacks],
-    }
+    p = {"embed": init.normal((cfg.vocab, cfg.d_model), 0.02)}
+    if not cfg.tie_embed:
+        p["head"] = init.normal((cfg.d_model, cfg.vocab),
+                                cfg.d_model ** -0.5)
+    p["final_norm"] = init_norm(init, (), cfg.d_model)
+    p["stacks"] = [B.init_stack(init, cfg, s) for s in cfg.stacks]
     if cfg.encoder is not None:
         p["enc_stacks"] = [B.init_stack(init, cfg, s)
                            for s in cfg.encoder.stacks]
         p["enc_norm"] = init_norm(init, (), cfg.d_model)
+    if cfg.shared is not None:
+        p["shared"] = B.init_shared(init, cfg)
     return p
+
+
+def _head(cfg, params):
+    """The head weight [D, V]: the embedding's transpose where tied."""
+    return params["embed"].t() if cfg.tie_embed else params["head"]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -176,6 +191,8 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
 def _embed(cfg, params, tokens):
     w = params["embed"].to(COMPUTE_DTYPE)
     h = _lookup(w, tokens) if is_dtensor(w) else w[tokens]
+    if not cfg.embed_scale:
+        return h
     # sqrt(d_model) rounded to the compute dtype, as the reference's
     # jnp.asarray(..., COMPUTE_DTYPE); a Python number, so no host copy
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=COMPUTE_DTYPE).item()
@@ -240,7 +257,7 @@ def encode(cfg, params, frame_embeds):
     positions = _positions(h.shape[0], h.shape[1], h.device)
     for sp, stack in zip(params["enc_stacks"], cfg.encoder.stacks):
         h, _, _ = B.run_stack(cfg, stack, sp, h, positions, mode="train")
-    return rms_norm(params["enc_norm"], h)
+    return rms_norm(params["enc_norm"], h, cfg.norm_eps)
 
 
 def forward(cfg: ModelConfig, params, tokens, *, extra_embeds=None,
@@ -248,7 +265,8 @@ def forward(cfg: ModelConfig, params, tokens, *, extra_embeds=None,
     """Full-sequence pass.  tokens [B,S]; extra_embeds [B,Sv,D] (vision);
     frame_embeds [B,Se,D] (audio encoder input).
 
-    Returns (logits [B,S_total,V], aux_loss, new_caches).
+    Returns (logits [B,S_total,V], aux_loss, new_caches); with shared
+    blocks, the sites' caches follow the stacks' (``init_caches``).
     """
     h = rows(_embed(cfg, params, tokens))
     if extra_embeds is not None:
@@ -263,15 +281,23 @@ def forward(cfg: ModelConfig, params, tokens, *, extra_embeds=None,
         mem_pos = _positions(memory.shape[0], memory.shape[1], h.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     new_caches = []
+    sites = None if cfg.shared is None else B.Sites(
+        cfg, params, h, mode, positions,
+        None if caches is None else caches[len(cfg.stacks)])
+    first = 0
     for i, (sp, stack) in enumerate(zip(params["stacks"], cfg.stacks)):
         h, aux, c = B.run_stack(
             cfg, stack, sp, h, positions, mode=mode, memory=memory,
             mem_positions=mem_pos,
-            caches=None if caches is None else caches[i])
+            caches=None if caches is None else caches[i], sites=sites,
+            first=first)
+        first += stack.count
         aux_total = aux_total + aux
         new_caches.append(c)
-    h = rms_norm(params["final_norm"], h)
-    logits = project(h, params["head"])
+    if sites is not None and mode == "prefill":
+        new_caches.append(sites.new_caches())
+    h = rms_norm(params["final_norm"], h, cfg.norm_eps)
+    logits = project(h, _head(cfg, params))
     return logits, aux_total, new_caches
 
 
@@ -348,10 +374,17 @@ def _mean_nll(logits, tgt):
 # ------------------------------------------------------------------ caches
 def init_caches(cfg, batch, cache_len, mem_len=0, dtype=torch.bfloat16,
                 device=None):
+    """One cache tree a stack; with shared blocks, the sites' K/V
+    (``blocks.init_shared_cache``) last.  Every leaf is [layers, batch,
+    ...]."""
     device = resolve_device(device)
-    return [B.init_stack_cache(cfg, s, batch, cache_len, mem_len, dtype,
-                               device=device)
-            for s in cfg.stacks]
+    caches = [B.init_stack_cache(cfg, s, batch, cache_len, mem_len, dtype,
+                                 device=device)
+              for s in cfg.stacks]
+    if cfg.shared is not None:
+        caches.append(B.init_shared_cache(cfg, batch, cache_len, dtype,
+                                          device))
+    return caches
 
 
 def prefill(cfg, params, tokens, *, cache_len=None, extra_embeds=None,
@@ -418,10 +451,17 @@ def decode_step(cfg, params, caches, token, pos):
         emb = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
         h = h + emb.to(h.dtype)[None, None, :]
     new_caches = []
+    sites = None if cfg.shared is None else B.Sites(
+        cfg, params, h, "decode", caches=caches[len(cfg.stacks)], pos=pos)
+    first = 0
     for i, (sp, stack) in enumerate(zip(params["stacks"], cfg.stacks)):
         h, _, c = B.run_stack(cfg, stack, sp, h, None, mode="decode",
-                              caches=caches[i], pos=pos)
+                              caches=caches[i], pos=pos, sites=sites,
+                              first=first)
+        first += stack.count
         new_caches.append(c)
-    h = rms_norm(params["final_norm"], h)
-    logits = project(h, params["head"])[:, 0]
+    if sites is not None:
+        new_caches.append(sites.new_caches())
+    h = rms_norm(params["final_norm"], h, cfg.norm_eps)
+    logits = project(h, _head(cfg, params))[:, 0]
     return logits, new_caches

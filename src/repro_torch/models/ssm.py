@@ -4,7 +4,8 @@ Implements the SSD algorithm of arXiv:2405.21060: the sequence is split
 into chunks; within a chunk the dual quadratic (attention-like) form runs
 as matmuls; across chunks a small recurrent state [H, N, P] is carried
 from one chunk to the next (a Python loop over chunks).  Decode is the
-O(1) recurrent step.
+O(1) recurrent step: on the card, between its two projections, the
+kernels of ``kernels.ssm_decode``.
 """
 
 from __future__ import annotations
@@ -16,10 +17,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ssm_decode import ssm_step
 from repro_torch.models.layers import (Init, contiguous_stride,
                                        exchange_columns, init_linear,
                                        is_dtensor, like, linear,
-                                       on_local_rows, rms_norm, rows, silu,
+                                       on_local_rows, rows, silu,
                                        sum_over)
 
 
@@ -31,6 +33,16 @@ class SSMDims:
     expand: int = 2
     head_dim: int = 64    # P
     n_groups: int = 1
+    # Zamba2's (out of the repr, which the registry's configs share with
+    # the reference's): the gated norm taken over each group's d_inner /
+    # n_groups columns (``Zamba2RMSNormGated``), not over the whole row;
+    # ``(time_step_min, time_step_max, time_step_floor)``:
+    # dt floored at time_step_min, and ``init_mamba2`` drawing the
+    # published init (A_log = log(1..H); dt_bias the inverse softplus of
+    # a log-uniform dt in [min, max] floored at floor); None: no floor
+    # and the port's init
+    group_norm: bool = dataclasses.field(default=False, repr=False)
+    dt_limits: tuple | None = dataclasses.field(default=None, repr=False)
 
     @property
     def d_inner(self) -> int:
@@ -46,16 +58,29 @@ def init_mamba2(init: Init, lead, dims: SSMDims):
     din, N, H, G = dims.d_inner, dims.d_state, dims.n_heads, dims.n_groups
     d_in_proj = 2 * din + 2 * G * N + H   # z, x, B, C, dt
     conv_ch = din + 2 * G * N             # conv over x, B, C
-    a_log = torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32,
-                                     device=init.device))
-    return {
+    p = {
         "in_proj": init_linear(init, lead, dims.d_model, d_in_proj),
         "conv_w": init.normal(lead + (dims.d_conv, conv_ch), 0.2),
         "conv_b": init.full(lead + (conv_ch,), 0.0),
+    }
+    if dims.dt_limits is None:
+        a_log = torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32,
+                                         device=init.device))
+        # inverse-softplus of dt_init=0.01 so softplus(dt_bias) ~ 0.01
+        dt_bias = init.full(lead + (H,), math.log(math.expm1(0.01)))
+    else:
+        a_log = torch.log(torch.arange(1, H + 1, dtype=torch.float32,
+                                       device=init.device))
+        lo, hi, floor = dims.dt_limits
+        # a uniform draw from standard normals (their CDF)
+        u = 0.5 * (1 + torch.erf(init.normal(lead + (H,), 2 ** -0.5)))
+        dt = torch.exp(u * (math.log(hi) - math.log(lo)) + math.log(lo)) \
+            .clamp(min=floor)
+        dt_bias = dt + torch.log(-torch.expm1(-dt))
+    return p | {
         "A_log": a_log.expand(lead + (H,)).clone(),
         "D": init.full(lead + (H,), 1.0),
-        # inverse-softplus of dt_init=0.01 so softplus(dt_bias) ~ 0.01
-        "dt_bias": init.full(lead + (H,), math.log(math.expm1(0.01))),
+        "dt_bias": dt_bias,
         "norm": {"g": init.full(lead + (din,), 1.0)},
         "out_proj": init_linear(init, lead, din, dims.d_model,
                                 scale=din ** -0.5),
@@ -147,8 +172,10 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, D, chunk: int):
     return torch.stack(ys, 1).reshape(b, l, h, p)[:, :l_orig]
 
 
-def _dt_a(dt_raw, p):
+def _dt_a(dt_raw, p, dims: SSMDims):
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    if dims.dt_limits is not None:
+        dt = dt.clamp(min=dims.dt_limits[0])
     A = -torch.exp(p["A_log"].float())
     return dt, A
 
@@ -169,10 +196,10 @@ def _head_axis(proj, dims: SSMDims):
     DTensor ``proj`` (the in-projection): the ``model`` axis, where it is
     larger than one, ``proj``'s rows are not split over it, and its size
     divides the heads with each rank's heads in whole groups or within
-    one.  Else None: the mixer then runs on each rank's rows
-    (``on_local_rows``), as on a one-rank model axis, whose result is the
-    plain path's bit for bit."""
-    if not is_dtensor(proj):
+    one, and the gated norm is not taken per group.  Else None: the mixer
+    then runs on each rank's rows (``on_local_rows``), as on a one-rank
+    model axis, whose result is the plain path's bit for bit."""
+    if not is_dtensor(proj) or dims.group_norm:
         return None
     from torch.distributed.tensor import Shard
     mesh = proj.device_mesh
@@ -268,8 +295,10 @@ def _by_heads(fn, proj, p, dims: SSMDims, axis: int):
               gl), proj, pl
 
 
-def mamba2_apply(p, x, *, dims: SSMDims, chunk: int = 256):
-    """Full-sequence Mamba2 block. x [B,L,D] -> [B,L,D].
+def mamba2_apply(p, x, *, dims: SSMDims, chunk: int = 256,
+                 eps: float = 1e-6):
+    """Full-sequence Mamba2 block. x [B,L,D] -> [B,L,D]; ``eps`` the gated
+    norm's (the model's ``norm_eps``).
 
     On a mesh the mixer between the projections runs on each rank's rows
     and, over the ``model`` axis, on its share of the heads
@@ -285,7 +314,7 @@ def mamba2_apply(p, x, *, dims: SSMDims, chunk: int = 256):
     proj = linear(p["in_proj"], x)
     axis = _head_axis(proj, dims)
     if axis is None:
-        y = on_local_rows(lambda proj, q: _mix(q, proj, dims, chunk),
+        y = on_local_rows(lambda proj, q: _mix(q, proj, dims, chunk, eps),
                           (proj,), _mixer_params(p))
         return linear(p["out_proj"], y)
     from torch.distributed.tensor import DTensor, Shard
@@ -296,7 +325,8 @@ def mamba2_apply(p, x, *, dims: SSMDims, chunk: int = 256):
         return sum_over(sq.sum(-1, keepdim=True), mesh, axis) / dims.d_inner
 
     y, _, pl = _by_heads(lambda q, z, xBC, dt_raw, hl, gl: _mix_heads(
-        q, z, xBC, dt_raw, dims, hl, gl, chunk, mean_sq), proj, p, dims,
+        q, z, xBC, dt_raw, dims, hl, gl, chunk, eps, mean_sq), proj, p,
+        dims,
         axis)
     pl[axis] = Shard(2)
     shape = torch.Size((x.shape[0], x.shape[1], dims.d_inner))
@@ -305,10 +335,10 @@ def mamba2_apply(p, x, *, dims: SSMDims, chunk: int = 256):
     return linear(p["out_proj"], y)
 
 
-def _mix(p, proj, dims: SSMDims, chunk: int):
+def _mix(p, proj, dims: SSMDims, chunk: int, eps: float):
     z, xBC, dt_raw = _split_proj(proj, dims)
     return _mix_heads(p, z, xBC, dt_raw, dims, dims.n_heads, dims.n_groups,
-                      chunk, lambda sq: sq.mean(-1, keepdim=True))
+                      chunk, eps, None)
 
 
 def _conv_heads(q, xBC, dims: SSMDims, hl: int, gl: int):
@@ -322,19 +352,33 @@ def _conv_heads(q, xBC, dims: SSMDims, hl: int, gl: int):
             xBC[..., dl + gl * N:].reshape(B, L, gl, N))
 
 
-def _mix_heads(q, z, xBC, dt_raw, dims: SSMDims, hl, gl, chunk, mean_sq,
-               eps=1e-6):
+def _mix_heads(q, z, xBC, dt_raw, dims: SSMDims, hl, gl, chunk, eps,
+               mean_sq):
     """The mixer on ``hl`` heads of ``gl`` groups: y [B,L,hl·P] and its
-    gated RMS norm over all ``d_inner`` columns, ``mean_sq`` taking the
-    mean of the squares (``rms_norm``'s arithmetic)."""
+    gated RMS norm (``_gated_norm``)."""
     B, L, _ = z.shape
     xh, Bm, Cm = _conv_heads(q, xBC, dims, hl, gl)
-    dt, A = _dt_a(dt_raw, q)
+    dt, A = _dt_a(dt_raw, q, dims)
     y = _ssd_chunked(xh, dt, A, Bm, Cm, q["D"], min(chunk, L))
-    y = y.reshape(B, L, hl * dims.head_dim) * silu(z)
+    return _gated_norm(q["norm"]["g"],
+                       y.reshape(B, L, hl * dims.head_dim) * silu(z), dims,
+                       eps, mean_sq)
+
+
+def _gated_norm(g, y, dims: SSMDims, eps: float, mean_sq=None):
+    """``y`` (the output times ``silu(z)``) RMS-normed with gain ``g``,
+    ``rms_norm``'s arithmetic: over all ``d_inner`` columns, ``mean_sq``
+    taking the mean of the squares (default: over the last dim), or with
+    ``dims.group_norm`` over each group's ``d_inner / n_groups``."""
     yf = y.float()
+    if dims.group_norm:
+        yg = yf.unflatten(-1, (dims.n_groups, -1))
+        yf = (yg * torch.rsqrt((yg * yg).mean(-1, keepdim=True)
+                               + eps)).flatten(-2)
+        return (yf * g).to(y.dtype)
+    mean_sq = mean_sq or (lambda sq: sq.mean(-1, keepdim=True))
     return (yf * torch.rsqrt(mean_sq(yf * yf) + eps)
-            * q["norm"]["g"]).to(y.dtype)
+            * g).to(y.dtype)
 
 
 def mamba2_states(p, x, *, dims: SSMDims, chunk: int = 256):
@@ -353,7 +397,7 @@ def mamba2_states(p, x, *, dims: SSMDims, chunk: int = 256):
     def states(q, z, xBC, dt_raw, hl, gl):
         L = xBC.shape[1]
         xh, Bm, Cm = _conv_heads(q, xBC, dims, hl, gl)
-        dt, A = _dt_a(dt_raw, q)
+        dt, A = _dt_a(dt_raw, q, dims)
         return _ssd_final_state(xh, dt, A, Bm, Cm, min(chunk, L))
 
     ssm, proj, pl = _by_heads(states, proj, p, dims, axis)
@@ -378,7 +422,7 @@ def _states(p, proj, dims: SSMDims, chunk: int):
     z, xBC_raw, dt_raw = _split_proj(proj, dims)
     conv_state = xBC_raw[:, -(dims.d_conv - 1):, :]
     xh, Bm, Cm = _conv_heads(p, xBC_raw, dims, dims.n_heads, dims.n_groups)
-    dt, A = _dt_a(dt_raw, p)
+    dt, A = _dt_a(dt_raw, p, dims)
     return conv_state, _ssd_final_state(xh, dt, A, Bm, Cm,
                                         min(chunk, proj.shape[1]))
 
@@ -421,10 +465,12 @@ def _state_axis(conv_state, ssm_state):
         and conv_state.placements[i] == Shard(2) else None
 
 
-def mamba2_decode(p, x, conv_state, ssm_state, *, dims: SSMDims):
+def mamba2_decode(p, x, conv_state, ssm_state, *, dims: SSMDims,
+                  eps: float = 1e-6):
     """O(1) recurrent step.  x [B,1,D]; conv_state [B,K-1,C];
-    ssm_state [B,H,N,P].  Returns (y, conv_state, ssm_state); the states
-    come back laid out as they came in.
+    ssm_state [B,H,N,P]; ``eps`` the gated norm's.  Returns (y,
+    conv_state, ssm_state); the states come back laid out as they came
+    in.
 
     On a mesh whose ``model`` axis splits the states (``_state_axis``:
     the SSM state over ``d_state``, the conv state over its channels)
@@ -433,21 +479,23 @@ def mamba2_decode(p, x, conv_state, ssm_state, *, dims: SSMDims):
     runs on the rank's channels and its output [B, C] is gathered, the
     rank's ``N / tp`` slice of the state is updated with its slice of B,
     and ``y = Σ_n C[n]·state[n]`` is a pending sum, all-reduced once
-    ([B, H, P]).  Elsewhere the step runs on each rank's rows
-    (``on_local_rows``)."""
+    ([B, H, P]).  Elsewhere, and where the gated norm is taken per group,
+    the step runs on each rank's rows (``on_local_rows``)."""
     proj = linear(p["in_proj"], x)[:, 0]                   # [B, d_in_proj]
-    axis = _state_axis(conv_state, ssm_state)
+    axis = None if dims.group_norm else _state_axis(conv_state, ssm_state)
     if axis is None:
         y, conv, ssm = on_local_rows(
-            lambda proj, cs, ss, q: _step(q, proj, cs, ss, dims, x.dtype),
+            lambda proj, cs, ss, q: _step(q, proj, cs, ss, dims, x.dtype,
+                                          eps),
             (proj, conv_state, ssm_state), _mixer_params(p))
         return linear(p["out_proj"], y)[:, None, :], \
             like(conv, conv_state), like(ssm, ssm_state)
-    return _step_split(p, proj, conv_state, ssm_state, dims, axis, x.dtype)
+    return _step_split(p, proj, conv_state, ssm_state, dims, axis, x.dtype,
+                       eps)
 
 
 def _step_split(p, proj, conv_state, ssm_state, dims: SSMDims, axis: int,
-                dtype):
+                dtype, eps: float):
     """``mamba2_decode`` with the states split over mesh dim ``axis``."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.utils._pytree import tree_map
@@ -480,7 +528,7 @@ def _step_split(p, proj, conv_state, ssm_state, dims: SSMDims, axis: int,
     conv = wrap(silu(conv), (Bg, C), Shard(1)).redistribute(mesh, pl) \
         .to_local()
     xh, Bm, Cm = _split_xbc(conv, dims)
-    dt, A = _dt_a(dt_raw, q)                                # [B,H]
+    dt, A = _dt_a(dt_raw, q, dims)                                # [B,H]
     ns = slice(r * N // n, (r + 1) * N // n)
     rep = H // G
     Bh = Bm.reshape(B, G, N)[..., ns].repeat_interleave(rep, dim=1).float()
@@ -492,7 +540,8 @@ def _step_split(p, proj, conv_state, ssm_state, dims: SSMDims, axis: int,
     y = wrap(torch.einsum("bhn,bhnp->bhp", Ch, ss), (Bg, H, P), Partial()) \
         .redistribute(mesh, pl).to_local()
     y = y + q["D"].float()[None, :, None] * xhh
-    y = rms_norm(q["norm"], y.reshape(B, din).to(dtype) * silu(z))
+    y = _gated_norm(q["norm"]["g"], y.reshape(B, din).to(dtype) * silu(z),
+                    dims, eps)
     out = linear(p["out_proj"], wrap(y, (Bg, din)))[:, None, :]
     return (out,
             DTensor.from_local(full[:, 1:], mesh, conv_state.placements,
@@ -503,7 +552,16 @@ def _step_split(p, proj, conv_state, ssm_state, dims: SSMDims, axis: int,
                                stride=ssm_state.stride()))
 
 
-def _step(p, proj, conv_state, ssm_state, dims: SSMDims, dtype):
+def _step(p, proj, conv_state, ssm_state, dims: SSMDims, dtype, eps):
+    """The step between the projections: on a CUDA tensor the kernels of
+    ``kernels.ssm_decode``, else ``_step_plain``."""
+    if proj.is_cuda:
+        return ssm_step(p, proj, conv_state, ssm_state, dims, eps)
+    return _step_plain(p, proj, conv_state, ssm_state, dims, dtype, eps)
+
+
+def _step_plain(p, proj, conv_state, ssm_state, dims: SSMDims, dtype,
+                eps: float):
     B = proj.shape[0]
     din, N, H, G = dims.d_inner, dims.d_state, dims.n_heads, dims.n_groups
     z, xBC, dt_raw = _split_proj(proj, dims)
@@ -514,7 +572,7 @@ def _step(p, proj, conv_state, ssm_state, dims: SSMDims, dtype):
     conv = silu(conv)
     conv_state = full[:, 1:]
     xh, Bm, Cm = _split_xbc(conv, dims)
-    dt, A = _dt_a(dt_raw, p)                                # [B,H]
+    dt, A = _dt_a(dt_raw, p, dims)                                # [B,H]
     rep = H // G
     Bh = Bm.reshape(B, G, N).repeat_interleave(rep, dim=1).float()
     Ch = Cm.reshape(B, G, N).repeat_interleave(rep, dim=1).float()
@@ -525,4 +583,4 @@ def _step(p, proj, conv_state, ssm_state, dims: SSMDims, dtype):
     y = torch.einsum("bhn,bhnp->bhp", Ch, ssm_state) \
         + p["D"].float()[None, :, None] * xhh
     y = y.reshape(B, din).to(dtype) * silu(z)
-    return rms_norm(p["norm"], y), conv_state, ssm_state
+    return _gated_norm(p["norm"]["g"], y, dims, eps), conv_state, ssm_state

@@ -224,6 +224,22 @@ def test_the_bf16_tolerance_parts_right_from_wrong(case):
         assert atol_needed(wrong, want) >= 2 ** -9, fault
 
 
+@pytest.mark.parametrize("hd", [128, 224])
+def test_the_default_scale_is_hd_to_the_minus_half(hd):
+    """No ``scale`` is hd^-0.5 bit for bit (the deepseek-7b cell's launch
+    is unchanged); Zamba2's (hd / 2)^-0.5 reaches the logits."""
+    q, ck, cv = inputs(2, S_RING, 2, 1, hd, torch.bfloat16, torch.bfloat16)
+    pos = S_RING + 2
+    want = previous_core(q, ck, cv, pos, None)
+    assert torch.equal(ad.attn_decode_plain(q, ck, cv, pos), want)
+    assert torch.equal(ad.attn_decode(q, ck, cv, pos, None, hd ** -0.5),
+                       want)
+    half = ad.attn_decode(q, ck, cv, pos, None, (hd / 2) ** -0.5)
+    assert torch.equal(half, ad.attn_decode_plain(q, ck, cv, pos, None,
+                                                  (hd / 2) ** -0.5))
+    assert not torch.equal(half, want)
+
+
 # ------------------------------------------------------------------ on a GPU
 @pytest.fixture
 def cuda_device():
@@ -284,3 +300,18 @@ def test_cuda_kernel_every_head_dim_and_type(cuda_device, hd, types):
         want = ad.attn_decode_plain(q, ck, cv, pos, window)
         assert got.dtype == q_dtype
         close_to_plain(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [1024, 1279])
+def test_cuda_kernel_zamba2_cell(cuda_device, pos):
+    """The hd-224 variant at the Zamba2 decode cell's shape (B 16, S 1280,
+    KH 32, G 1) with its scale (224 / 2)^-0.5, in one pass."""
+    q, ck, cv = inputs(16, 1280, 32, 1, 224, torch.bfloat16, torch.bfloat16,
+                       seed=2, device=cuda_device)
+    scale = 112 ** -0.5
+    adk.reset_launch_counts()
+    got = ad.attn_decode(q, ck, cv, pos, None, scale)
+    torch.cuda.synchronize()
+    assert adk.launch_counts["attn_decode"] == 1
+    close_to_plain(got, ad.attn_decode_plain(q, ck, cv, pos, None, scale))

@@ -146,6 +146,44 @@ def test_a_decode_step_records_its_ranges(dense):
     assert same_bits(got, decode(params, caches, tok, 6))
 
 
+def test_a_dense_model_records_no_hybrid_ranges(dense):
+    cfg, params = dense
+    tokens = torch.randint(1, cfg.vocab, (2, 6),
+                           generator=torch.Generator().manual_seed(1))
+    (_, caches), n = ranges(lambda: make_prefill_step(cfg, cache_len=8)(
+        params, {"tokens": tokens}))
+    _, m = ranges(lambda: make_decode_step(cfg)(params, caches,
+                                                tokens[:, -1:], 6))
+    for name in ("ssm_step", "shared_block"):
+        assert f"prefill.{name}" not in n and f"decode.{name}" not in m
+
+
+def test_a_hybrid_model_records_its_ranges():
+    """Zamba2 at its smoke size: each Mamba layer's mixer and each site's
+    shared block once a decode step, and once in prefill, under the
+    names of docs/PORT.md ("Spans of the hybrid model")."""
+    from repro_torch.configs import zamba2_7b_instruct
+    cfg = zamba2_7b_instruct.smoke_config()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    tokens = torch.randint(1, cfg.vocab, (2, 6),
+                           generator=torch.Generator().manual_seed(1))
+    (_, caches), n = ranges(lambda: make_prefill_step(cfg, cache_len=8)(
+        params, {"tokens": tokens}))
+    layers, sites = cfg.n_layers, len(cfg.shared.sites)
+    assert n.get("prefill.ssm_step") == layers
+    assert n.get("prefill.shared_block") == sites
+    decode = make_decode_step(cfg)
+    tok = tokens[:, -1:]
+    got, m = ranges(lambda: decode(params, caches, tok, 6))
+    assert m.get("decode.ssm_step") == layers
+    assert m.get("decode.shared_block") == sites
+    assert m.get("decode.cache_write") == m.get("decode.attn_core") == sites
+    # the Mamba layers' states and the sites' K/V
+    assert m.get("decode.cache_stack") == 2
+    assert same_bits(got, decode(params, caches, tok, 6))
+
+
 def test_a_training_step_records_its_ranges(dense):
     cfg, params = dense
     batch = {"tokens": torch.randint(
