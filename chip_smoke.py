@@ -2011,7 +2011,11 @@ def lm_smoke(device) -> list:
                 P = cpu[1].shape[1] - 1
                 pos = P + cfg.vision_tokens
                 tok = cpu[1][:, P:P + 1]
-                d_cpu, _ = decode_step(cfg, cpu[0], cpu[5], tok, pos)
+                # the step writes slot ``pos`` of the caches it is given:
+                # a copy, so that cpu[5] stays the prefill's
+                d_cpu, _ = decode_step(cfg, cpu[0],
+                                       tree_map(torch.clone, cpu[5]), tok,
+                                       pos)
                 d_gpu, _ = decode_step(
                     cfg, gpu[0], tree_map(lambda t: t.to(device), cpu[5]),
                     tok.to(device), pos)

@@ -437,9 +437,11 @@ class Sites:
     runs before Mamba layer ``layer`` on its input ``h``, or None where
     none does.  ``x_emb`` is the embedding the blocks take beside ``h``;
     ``caches`` the sites' K/V (``init_shared_cache``), filled by prefill
-    and read and written by decode; ``new_caches()`` stacks the new ones
-    (profiler range ``decode.cache_stack``).  A site runs in the range
-    ``decode.shared_block`` (``prefill.shared_block``)."""
+    and read and written by decode; ``new_caches()`` gives the new ones
+    (profiler range ``decode.cache_stack``): the caches given where every
+    site wrote its slot in place (``attention_decode``), else stacked.  A
+    site runs in the range ``decode.shared_block``
+    (``prefill.shared_block``)."""
 
     def __init__(self, cfg, params, x_emb, mode, positions=None,
                  caches=None, pos=None):
@@ -452,6 +454,7 @@ class Sites:
         self.index = {layer: s for s, layer in enumerate(sb.sites)}
         self.blocks = _unbind(params["shared"]["blocks"], sb.n_blocks)
         self.sites = _unbind(params["shared"]["sites"], len(sb.sites))
+        self.given = caches
         self.caches = None if caches is None \
             else _unbind(caches, len(sb.sites))
         self.span = {"prefill": "prefill.shared_block",
@@ -482,7 +485,7 @@ class Sites:
 
     def new_caches(self):
         with span("decode.cache_stack"):
-            return tree_stack(self.new)
+            return _restack(self.given, self.caches, self.new)
 
 
 # --------------------------------------------------------------- stack runner
@@ -499,8 +502,11 @@ def run_stack(cfg, stack: StackSpec, sp, h, positions, *, mode="train",
     same tree at every layer.  ``sites`` (a ``Sites``) gives layer
     ``first + i`` of a stack of one block the output of the shared block
     that runs before it.  The layers' new caches are stacked inside the
-    profiler range ``decode.cache_stack`` (prefill's too); a mamba
-    layer's prefill runs in the range ``prefill.ssm_step``.  A decode of
+    profiler range ``decode.cache_stack`` (prefill's too), but for
+    leaves that every layer left as the view it was given (a decode's
+    K/V written in place by ``attention_decode``, cross K/V): those are
+    the stacked caches given.  A mamba layer's prefill runs in the range
+    ``prefill.ssm_step``.  A decode of
     a stack of one Mamba2 block on a CUDA tensor is
     ``_mamba_stack_decode``'s.
     """
@@ -553,7 +559,7 @@ def run_stack(cfg, stack: StackSpec, sp, h, positions, *, mode="train",
     if mode == "train":
         return h, aux, []
     with span("decode.cache_stack"):
-        return h, aux, tree_stack(outs)
+        return h, aux, _restack(caches, [c for _, c in per_layer], outs)
 
 
 def _stack_decode_fused(specs, h) -> bool:
@@ -627,6 +633,23 @@ def _unbind(tree, count):
         parts = [_unbind(v, count) for v in tree]
         return [type(tree)(v[i] for v in parts) for i in range(count)]
     return torch.unbind(tree)
+
+
+def _restack(stacked, given, new):
+    """A pass's new caches from ``new``, its per-layer trees:
+    ``tree_stack(new)``, but a leaf that every layer returned as the view
+    of ``stacked`` it was given (``given``, the per-layer trees of
+    ``stacked``) is that leaf of ``stacked`` itself, nothing copied."""
+    if isinstance(stacked, dict):
+        return {k: _restack(v, [g[k] for g in given], [n[k] for n in new])
+                for k, v in stacked.items()}
+    if isinstance(stacked, (list, tuple)):
+        return type(stacked)(_restack(v, [g[i] for g in given],
+                                      [n[i] for n in new])
+                             for i, v in enumerate(stacked))
+    if len(new) == len(given) and all(n is g for n, g in zip(new, given)):
+        return stacked
+    return torch.stack(new)
 
 
 def tree_unflatten(tree, leaves):

@@ -694,9 +694,16 @@ def attention_decode(p, x, cache_k, cache_v, pos, *, dims: AttnDims,
 
     x [B,1,D]; cache_k/v [B,S,KH,hd]; pos int write position; ``scale``
     of the logits, default hd^-0.5.
-    Returns (out [B,1,D], cache_k, cache_v): new caches; the caller's are
-    left as they were (the copies and the write: profiler range
-    ``decode.cache_write``).  The attention over the cache is
+    Returns (out [B,1,D], cache_k, cache_v).  The new token's K and V go
+    into slot ``pos`` of the caches given, in place, and those same
+    tensors come back (profiler range ``decode.cache_write``): the step
+    reads only slots of positions up to ``pos``, so every slot a later
+    step can read from the caches given stays as it was.  Where the ring
+    has wrapped (``pos >= S``: slot ``pos % S`` holds a position a caller
+    may still read), the caches are copied first (range
+    ``decode.cache_clone``) and the caller's are left whole.  A
+    caller that runs two steps from one cache at once clones it itself.
+    The attention over the cache is
     ``kernels.attn_decode`` (range ``decode.attn_core``): on a CUDA
     tensor a kernel that reads the cache once, in its stored type.
     """
@@ -714,9 +721,11 @@ def attention_decode(p, x, cache_k, cache_v, pos, *, dims: AttnDims,
                        rope_theta).reshape(B, 1, kh, g, hd)
         k_new = apply_rope(k_new, posv, rope_theta)
     write_at = pos % S  # ring buffer (sliding-window caches wrap)
+    if pos >= S:
+        with span("decode.cache_clone"):
+            cache_k = cache_k.clone()
+            cache_v = cache_v.clone()
     with span("decode.cache_write"):
-        cache_k = cache_k.clone()
-        cache_v = cache_v.clone()
         cache_k[:, write_at] = k_new[:, 0].to(cache_k.dtype)
         cache_v[:, write_at] = v_new[:, 0].to(cache_v.dtype)
 

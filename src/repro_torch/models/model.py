@@ -439,7 +439,9 @@ def decode_step(cfg, params, caches, token, pos):
     """One token step.  token [B,1]; pos absolute position (an int, or a
     0-d tensor read once on the host).
 
-    Returns (logits [B,V], new_caches)."""
+    Returns (logits [B,V], new_caches): the K/V caches given, slot
+    ``pos`` written in place, and new states (``steps.make_decode_step``
+    states the contract)."""
     pos = int(pos)
     h = rows(_embed(cfg, params, token))
     if cfg.use_abs_pos:

@@ -118,6 +118,17 @@ def make_prefill_step(cfg, cache_len=None, *, layout="2d"):
 
 
 def make_decode_step(cfg):
+    """(params, caches, token, pos) -> (logits, next token, caches).
+
+    The step writes the new token's K and V into slot ``pos % S`` of the
+    K/V caches it is given, in place, and returns those same tensors (the
+    reference's ``donate_argnums``); every slot a later step can read from
+    caches the caller kept stays as it was, so a generation restarted
+    from kept caches serves the same tokens.  The SSM and conv states come
+    back new.  A wrapped ring (``pos >= S``) is copied first and the
+    caller's left whole (``layers.attention_decode``).  A
+    caller that runs two steps from one cache at once clones it itself.
+    """
     def decode_step(params, caches, token, pos):
         logits, new_caches = M.decode_step(cfg, params, caches, token, pos)
         # greedy next token (serving driver may re-sample)

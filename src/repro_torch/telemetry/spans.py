@@ -13,8 +13,8 @@ tracer), a gated one a flag test.
 The flag is read through its module on every call, never imported once:
 the profiler sets it on entry and clears it on exit, process-wide, so
 blocks on autograd's device thread are recorded too.  See
-docs/TELEMETRY.md ("Spans") and docs/PORT.md ("Spans of the hybrid
-model") for the names the program uses.
+docs/TELEMETRY.md ("Spans") and docs/PORT.md ("Spans of the in-place
+decode", "Spans of the hybrid model") for the names the program uses.
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ CPU.
 * under ``torch.profiler`` one ``OverlayServer`` round (streaming and
   barrier drains), one decode step of a small dense model and one
   training step record the ranges of docs/TELEMETRY.md, each as often as
-  the table there says;
+  the table there says (decode's cache ranges as docs/PORT.md's "Spans
+  of the in-place decode" has them);
 * their outputs are bit-identical with the profiler on and off;
 * the dry run's counts (FLOPs, bytes, ops, peak, collectives) are those
   of the same step with the ranges taken out: its tracer sees no
@@ -141,9 +142,14 @@ def test_a_decode_step_records_its_ranges(dense):
     assert n.get("decode.cache_write") == layers
     assert n.get("decode.attn_core") == layers
     assert n.get("decode.cache_stack") == 1
+    assert "decode.cache_clone" not in n       # slot 6 written in place
     # q, k, v, o, up, gate, down a layer, then the head
     assert n.get("weights.cast") == 7 * layers + 1
     assert same_bits(got, decode(params, caches, tok, 6))
+    # position 8 wraps the 8-slot ring: each layer's K/V copied first
+    _, n = ranges(lambda: decode(params, caches, tok, 8))
+    assert n.get("decode.cache_clone") == n.get("decode.cache_write") \
+        == layers
 
 
 def test_a_dense_model_records_no_hybrid_ranges(dense):
@@ -179,9 +185,12 @@ def test_a_hybrid_model_records_its_ranges():
     assert m.get("decode.ssm_step") == layers
     assert m.get("decode.shared_block") == sites
     assert m.get("decode.cache_write") == m.get("decode.attn_core") == sites
-    # the Mamba layers' states and the sites' K/V
+    # the Mamba layers' states (stacked) and the sites' K/V (in place)
     assert m.get("decode.cache_stack") == 2
+    assert "decode.cache_clone" not in m
     assert same_bits(got, decode(params, caches, tok, 6))
+    _, m = ranges(lambda: decode(params, caches, tok, 8))
+    assert m.get("decode.cache_clone") == sites
 
 
 def test_a_training_step_records_its_ranges(dense):
